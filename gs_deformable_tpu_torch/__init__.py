@@ -1,0 +1,6 @@
+"""PyTorch + CUDA port of gs_deformable_tpu for one NVIDIA H100.
+
+The JAX package stays the reference; this package imports torch, numpy and
+the standard library only.  Kernels in ``csrc/`` build with nvcc for
+``sm_90a`` at first use (see ``_build.py``).
+"""

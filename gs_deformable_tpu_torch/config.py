@@ -1,0 +1,180 @@
+"""Typed configuration of the PyTorch port: the JAX package's config tree,
+copied with the same fields and defaults so a config built for one package
+reads the same in the other.
+
+Knobs split three ways in this port:
+
+- implemented: everything the deformable render path reads;
+- documented no-ops: knobs that only shaped the TPU schedule (``tile_batch``,
+  ``stream_chunks``, ``scan_mode``, ``defer_fwd_reductions``, ``block_rows``,
+  ``fill_mode``) or only matter to training (``grad_reduce``,
+  ``bf16_cotangents``).  The CUDA kernels compute the same values whatever
+  they are set to;
+- not yet ported: ``check_supported`` raises ``NotImplementedError`` naming
+  the slice of the port that will bring them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    eval: bool = False
+    # "offset" (the 4-head additive net) or "none" (static scene); "se3"
+    # is not ported yet.
+    deform_mode: str = "offset"
+    use_opacity_mask: bool = False
+    random_init_points: int = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class DeformConfig:
+    depth: int = 8
+    width: int = 256
+    skips: Tuple[int, ...] = (4,)
+    multires_xyz: int = 10
+    multires_time: int = 10
+    warmup_iters: int = 3000
+    sh_coeffs: int = 16
+    # "bfloat16": operands rounded to bf16, products summed in fp32 (the
+    # JAX tier's preferred_element_type=float32).  "float32": full fp32.
+    # "float32_3x" (the TPU's 3-pass bf16 tier, ~1e-6 relative) runs as
+    # "float32" here.
+    compute_dtype: str = "bfloat16"
+    bf16_cotangents: bool = False  # training only; no-op in this port
+    block_rows: int = 65536  # TPU code-size knob; no-op in this port
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    convert_shs_python: bool = False
+    compute_cov3d_python: bool = False
+    debug: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterizeConfig:
+    tile_x: int = 16
+    tile_y: int = 16
+    instance_capacity: int = 1 << 21
+    # Tile alignment of the instance layout.  The CUDA composite streams any
+    # chunk size; it only sets where each tile's rows start.
+    chunk: int = 128
+    tile_batch: int = 8  # TPU grid batching; no-op in this port
+    opacity_aware_radius: bool = True
+    tile_cull: bool = True
+    # "mixed" and "batch" both render through the tile-composite forward
+    # kernel; "stream" and "packed" are not ported yet.
+    composite_mode: str = "mixed"
+    sub_chunk: int = 32
+    stream_chunks: int = 8  # TPU stream schedule; no-op in this port
+    aligned_slack: int = -1
+    # "exact", and "auto"/"radix" which give the same order by construction;
+    # "packed" (a truncated-depth key with another tie order) is not ported.
+    sort_mode: str = "auto"
+    # Every value gives the same integers; the port always fills through
+    # the ordered-fill kernel.
+    fill_mode: str = "pallas_all"
+    scan_mode: str = "linear"  # TPU prefix-product form; no-op in this port
+    grad_reduce: str = "sort"  # training only; no-op in this port
+    defer_fwd_reductions: bool = False  # TPU reduction schedule; no-op
+    transmittance_eps: float = 1e-4
+    alpha_max: float = 0.99
+    alpha_min: float = 1.0 / 255.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationConfig:
+    iterations: int = 40_000
+    position_lr_init: float = 1.6e-4
+    position_lr_final: float = 1.6e-6
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 40_000
+    offset_lr_init: float = 8e-4
+    offset_lr_final: float = 1.6e-6
+    feature_lr: float = 2.5e-3
+    opacity_lr: float = 0.05
+    scaling_lr: float = 5e-3
+    rotation_lr: float = 1e-3
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    lambda_offset_norm: float = 0.1
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 2e-4
+    min_opacity: float = 0.005
+    max_screen_size: int = 20
+    densify_offset_gate: float = 0.0
+    adam_eps: float = 1e-15
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    data_axis: int = 1
+    model_axis: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    deform: DeformConfig = dataclasses.field(default_factory=DeformConfig)
+    pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
+    raster: RasterizeConfig = dataclasses.field(default_factory=RasterizeConfig)
+    opt: OptimizationConfig = dataclasses.field(default_factory=OptimizationConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+_LATER = {
+    "se3": "the deformation-variants slice (SE(3) and latent nets)",
+    "schedules": "the composite-schedules slice",
+}
+
+
+def check_raster(cfg: RasterizeConfig) -> None:
+    """Raise for rasterizer knobs this port does not implement yet."""
+    if cfg.composite_mode in ("stream", "packed"):
+        raise NotImplementedError(
+            f"composite_mode={cfg.composite_mode!r} arrives with "
+            f"{_LATER['schedules']}; use 'mixed' or 'batch'")
+    if cfg.composite_mode not in ("mixed", "batch"):
+        raise ValueError(f"unknown composite_mode {cfg.composite_mode!r}")
+    if cfg.sort_mode == "packed":
+        raise NotImplementedError(
+            "sort_mode='packed' (truncated-depth key, other tie order) "
+            f"arrives with {_LATER['schedules']}; use 'exact'")
+    if cfg.sort_mode not in ("exact", "auto", "radix"):
+        raise ValueError(f"unknown sort_mode {cfg.sort_mode!r}")
+    if cfg.fill_mode not in ("scatter", "pallas", "pallas_all"):
+        raise ValueError(f"unknown fill_mode {cfg.fill_mode!r}")
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise for any knob of ``cfg`` this port does not implement yet."""
+    check_raster(cfg.raster)
+    if cfg.model.deform_mode == "se3":
+        raise NotImplementedError(
+            f"deform_mode='se3' arrives with {_LATER['se3']}")
+    if cfg.model.deform_mode not in ("offset", "none"):
+        raise ValueError(f"unknown deform_mode {cfg.model.deform_mode!r}")
+    if cfg.model.use_opacity_mask:
+        raise NotImplementedError(
+            f"use_opacity_mask arrives with {_LATER['se3']}")
+    if cfg.deform.compute_dtype not in ("bfloat16", "float32", "float32_3x"):
+        raise ValueError(
+            f"unknown deform.compute_dtype {cfg.deform.compute_dtype!r}")

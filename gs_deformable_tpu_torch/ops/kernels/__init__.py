@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Every wrapper takes its plain version for a CPU tensor and launches its
+kernel (or raises) for a CUDA tensor.  Each keeps a launch counter, a plain
+integer that rises by one per kernel launch and nowhere else, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from . import composite, ordered_fill
+
+WRAPPERS = {
+    "composite_forward": composite.composite_forward,
+    "ordered_prefix_fill": ordered_fill.ordered_prefix_fill,
+    "ordered_place_i32": ordered_fill.ordered_place_i32,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

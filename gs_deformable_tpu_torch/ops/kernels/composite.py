@@ -1,0 +1,149 @@
+"""Tile composite forward: the port of ``ops/pallas/composite.py:_forward_kernel``.
+
+``composite_forward(splats_t, tile_chunk_start, tile_count, ...)`` takes the
+field-major ``(16, Kp)`` sorted splats ``[x, y, conic_a, conic_b, conic_c,
+opacity, r, g, b, 0...]`` and returns ``(T, 8, 256)`` rows ``[r, g, b,
+final_T, n_contrib, 0, 0, 0]`` per 16x16 tile (CUDA source
+``csrc/composite_fwd.cu``).  ``chunk`` only sets the layout: tile t's
+instances start at row ``tile_chunk_start[t] * chunk``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ... import _build
+
+SPLAT_WIDTH = 16
+TILE = 16
+NPIX = TILE * TILE
+OUT_ROWS = 8
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "composite_forward": (_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_float, _P, _P),
+}
+
+
+class Work(NamedTuple):
+    """(instance, pixel) pairs a sequential composite evaluates."""
+
+    evaluated: int  # pairs tested before each pixel stopped
+    contributing: int  # pairs that blended into a pixel
+
+
+def _pixel_coords(num_tiles: int, grid_x: int, device):
+    t = torch.arange(num_tiles, device=device)[:, None]
+    p = torch.arange(NPIX, device=device)[None, :]
+    px = ((t % grid_x) * TILE + p % TILE).to(torch.float32)
+    py = ((t // grid_x) * TILE + p // TILE).to(torch.float32)
+    return px, py
+
+
+def composite_forward_plain(
+    splats_t: torch.Tensor,
+    tile_chunk_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    *,
+    grid_x: int,
+    chunk: int,
+    alpha_max: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    eps: float = 1e-4,
+    count_work: bool = False,
+):
+    """Vectorized over tiles x pixels, a Python loop over the in-tile rank.
+
+    Same float operations in the same order as the kernel.  With
+    ``count_work`` also returns the ``Work`` this input needs.
+    """
+    Kp = splats_t.shape[1]
+    T = tile_count.shape[0]
+    dev = splats_t.device
+    px, py = _pixel_coords(T, grid_x, dev)
+    start = tile_chunk_start.long() * chunk
+    count = tile_count.long()
+    trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
+    rgb = torch.zeros((3, T, NPIX), dtype=torch.float32, device=dev)
+    ncon = torch.zeros((T, NPIX), dtype=torch.int32, device=dev)
+    done = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    contributing = torch.zeros((), dtype=torch.int64, device=dev)
+    amax = torch.tensor(alpha_max, dtype=torch.float32, device=dev)
+    max_count = int(count.max()) if T > 0 else 0
+    for i in range(max_count):
+        valid = (i < count)[:, None]  # (T, 1)
+        s = splats_t[:9, torch.clamp(start + i, max=Kp - 1)]  # (9, T)
+        xg, yg, ca, cb, cc, op = (s[f][:, None] for f in range(6))
+        dx = xg - px
+        dy = yg - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.minimum(amax, op * torch.exp(power))
+        live = valid & ~done
+        skip = (power > 0.0) | (alpha < alpha_min) | ~live
+        test_t = trans * (1.0 - alpha)
+        stop = ~skip & (test_t < eps)
+        contrib = ~skip & ~stop
+        if count_work:
+            evaluated += live.sum()
+            contributing += contrib.sum()
+        done = done | stop
+        w = alpha * trans
+        for ch in range(3):
+            rgb[ch] = torch.where(contrib, rgb[ch] + s[6 + ch][:, None] * w, rgb[ch])
+        trans = torch.where(contrib, test_t, trans)
+        ncon = torch.where(contrib, i + 1, ncon)
+    out = torch.zeros((T, OUT_ROWS, NPIX), dtype=torch.float32, device=dev)
+    out[:, 0:3] = rgb.permute(1, 0, 2)
+    out[:, 3] = trans
+    out[:, 4] = ncon.to(torch.float32)
+    if count_work:
+        return out, Work(int(evaluated), int(contributing))
+    return out
+
+
+def composite_forward(
+    splats_t: torch.Tensor,
+    tile_chunk_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    *,
+    grid_x: int,
+    chunk: int,
+    alpha_max: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    eps: float = 1e-4,
+) -> torch.Tensor:
+    """(16, Kp) fp32 splats, (T,) int32 tables -> (T, 8, 256) fp32."""
+    if splats_t.dtype != torch.float32 or splats_t.dim() != 2 or splats_t.shape[0] != SPLAT_WIDTH:
+        raise ValueError(f"splats_t must be (16, Kp) float32, got {splats_t.dtype} {tuple(splats_t.shape)}")
+    for name, t in (("tile_chunk_start", tile_chunk_start), ("tile_count", tile_count)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
+    if tile_chunk_start.shape != tile_count.shape or tile_count.shape[0] < 1:
+        raise ValueError("tile tables must share one non-empty (T,) shape")
+    kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min, eps=eps)
+    if splats_t.device.type == "cpu":
+        return composite_forward_plain(splats_t, tile_chunk_start, tile_count, **kw)
+    if splats_t.device.type != "cuda" or {tile_chunk_start.device, tile_count.device} != {splats_t.device}:
+        raise ValueError("splats and tile tables must share one CUDA device")
+    lib = _build.load("composite_fwd", _SIGNATURES)
+    splats_t = splats_t.contiguous()
+    starts = tile_chunk_start.contiguous()
+    counts = tile_count.contiguous()
+    T = counts.shape[0]
+    out = torch.empty((T, OUT_ROWS, NPIX), dtype=torch.float32, device=splats_t.device)
+    stream = torch.cuda.current_stream(splats_t.device).cuda_stream
+    err = lib.composite_forward(
+        splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(),
+        T, grid_x, chunk, alpha_max, alpha_min, eps, out.data_ptr(), stream)
+    _build.check(err, "composite_forward")
+    composite_forward.launches += 1
+    return out
+
+
+composite_forward.launches = 0

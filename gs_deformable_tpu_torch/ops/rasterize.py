@@ -1,0 +1,142 @@
+"""The tiled rasterizer: preprocess -> tile cull -> binning -> CUDA composite.
+
+Port of ``gs_deformable_tpu/ops/rasterize.py`` for rendering (no autograd in
+this slice).  ``render_gaussians`` takes the NDC ``means2d_offset_ndc`` tap
+argument of the JAX version and adds it to the NDC means.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import RasterizeConfig, check_raster
+from . import sh as sh_ops
+from .binning import bin_gaussians
+from .kernels.composite import SPLAT_WIDTH, composite_forward
+from .projection import PreprocessOut, ndc2pix, preprocess, tile_ellipse_mask
+from .segsum import gather_splats_t
+from .transforms import build_cov3d
+
+
+class RenderOut(NamedTuple):
+    image: torch.Tensor  # (3, H, W) composited over bg
+    final_t: torch.Tensor  # (H, W)
+    n_contrib: torch.Tensor  # (H, W) int32
+    radii: torch.Tensor  # (P,) int32
+    means2d_ndc: torch.Tensor  # (P, 2)
+    visibility: torch.Tensor  # (P,) bool
+    required_instances: torch.Tensor  # () int32; overflow if > instance_capacity
+    required_aligned: torch.Tensor  # () int32 aligned rows needed (vs Kp)
+
+
+def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
+                  *, grid_x: int, grid_y: int, cfg: RasterizeConfig = RasterizeConfig()):
+    """Tile cull -> bin -> sorted-splat gather: (splats_t (16, Kp), Binning)."""
+    check_raster(cfg)
+    if (cfg.tile_x, cfg.tile_y) != (16, 16):
+        raise ValueError("the composite kernel takes 16x16 tiles")
+    tt = tiles_touched
+    tile_mask = None
+    if cfg.tile_cull:
+        tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
+                                          tile_x=cfg.tile_x, tile_y=cfg.tile_y)
+    binning = bin_gaussians(tt, rect, depths, grid_x=grid_x, grid_y=grid_y,
+                            capacity=cfg.instance_capacity, chunk=cfg.chunk,
+                            sort_mode=cfg.sort_mode, aligned_slack=cfg.aligned_slack,
+                            tile_mask=tile_mask)
+    P = means2d_pix.shape[0]
+    op = opacities[:, None] if opacities.dim() == 1 else opacities
+    splats = torch.cat(
+        [means2d_pix, conics, op, colors,
+         torch.zeros((P, SPLAT_WIDTH - 9), dtype=torch.float32, device=means2d_pix.device)],
+        dim=1)
+    return gather_splats_t(splats, binning.gid), binning
+
+
+def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
+                    *, grid_x: int, grid_y: int, cfg: RasterizeConfig = RasterizeConfig()):
+    """Tile cull -> bin -> sorted-splat gather -> composite on a (grid_x, grid_y) grid.
+
+    Returns (out_tiles (T, 8, 256), required int32, total_aligned int32).
+    """
+    splats_t, binning = prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect,
+                                      tiles_touched, grid_x=grid_x, grid_y=grid_y, cfg=cfg)
+    out_tiles = composite_forward(
+        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x=grid_x,
+        chunk=cfg.chunk, alpha_max=cfg.alpha_max, alpha_min=cfg.alpha_min,
+        eps=cfg.transmittance_eps)
+    return out_tiles, binning.required, binning.total_aligned
+
+
+def rasterize_arrays(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
+                     bg, *, width: int, height: int,
+                     cfg: RasterizeConfig = RasterizeConfig()):
+    """Composite screen-space gaussians over ``bg``.
+
+    Returns (image (3,H,W), final_t (H,W), n_contrib (H,W) int32, required,
+    total_aligned).
+    """
+    grid_x = (width + cfg.tile_x - 1) // cfg.tile_x
+    grid_y = (height + cfg.tile_y - 1) // cfg.tile_y
+    out_tiles, required, total_aligned = composite_tiles(
+        means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
+        grid_x=grid_x, grid_y=grid_y, cfg=cfg)
+    # One tile -> image relayout for all five planes: (T, 5, npix) -> (5, H, W).
+    planes = out_tiles[:, 0:5, :].reshape(grid_y, grid_x, 5, cfg.tile_y, cfg.tile_x)
+    planes = planes.permute(2, 0, 3, 1, 4).reshape(
+        5, grid_y * cfg.tile_y, grid_x * cfg.tile_x)[:, :height, :width]
+    color = planes[0:3]
+    final_t = planes[3]
+    n_contrib = planes[4].to(torch.int32)
+    image = color + final_t[None] * bg[:, None, None]
+    return image, final_t, n_contrib, required, total_aligned
+
+
+class ScreenSpace(NamedTuple):
+    pre: PreprocessOut
+    means2d_pix: torch.Tensor  # (P, 2) after the NDC tap offset
+    means2d_ndc: torch.Tensor  # (P, 2)
+    colors: torch.Tensor  # (P, 3)
+    opacities: torch.Tensor  # (P,)
+
+
+def screen_space(means3d, scales, rotations, opacities, shs, *, viewmatrix, projmatrix,
+                 campos, width: int, height: int, tan_fovx: float, tan_fovy: float,
+                 sh_degree: int, scale_modifier: float = 1.0,
+                 alive: Optional[torch.Tensor] = None,
+                 means2d_offset_ndc: Optional[torch.Tensor] = None,
+                 colors_precomp: Optional[torch.Tensor] = None,
+                 cov3d_precomp: Optional[torch.Tensor] = None,
+                 cfg: RasterizeConfig = RasterizeConfig()) -> ScreenSpace:
+    """cov3D -> EWA preprocess -> SH colour: the per-gaussian half of the render."""
+    cov3d = cov3d_precomp if cov3d_precomp is not None else build_cov3d(
+        scales, rotations, scale_modifier)
+    op = opacities[:, 0] if opacities.dim() == 2 else opacities
+    pre = preprocess(means3d, cov3d, viewmatrix, projmatrix, width=width, height=height,
+                     tan_fovx=tan_fovx, tan_fovy=tan_fovy, tile_x=cfg.tile_x,
+                     tile_y=cfg.tile_y, alive=alive,
+                     opacities=op if cfg.opacity_aware_radius else None)
+    ndc = pre.means2d_ndc
+    if means2d_offset_ndc is not None:
+        ndc = ndc + means2d_offset_ndc
+    pix = torch.stack([ndc2pix(ndc[:, 0], width), ndc2pix(ndc[:, 1], height)], dim=-1)
+    colors = colors_precomp if colors_precomp is not None else sh_ops.eval_sh_color(
+        sh_degree, shs, means3d, campos)
+    return ScreenSpace(pre, pix, ndc, colors, op)
+
+
+def render_gaussians(means3d, scales, rotations, opacities, shs, *, bg, width: int,
+                     height: int, cfg: RasterizeConfig = RasterizeConfig(),
+                     **kw) -> RenderOut:
+    """Render activated 3D gaussians: ``screen_space`` (same keywords) then the
+    tiled composite over ``bg``."""
+    ss = screen_space(means3d, scales, rotations, opacities, shs, width=width,
+                      height=height, cfg=cfg, **kw)
+    pre = ss.pre
+    image, final_t, n_contrib, required, total_aligned = rasterize_arrays(
+        ss.means2d_pix, pre.depths, pre.conics, ss.opacities, ss.colors, pre.rect,
+        pre.tiles_touched, bg, width=width, height=height, cfg=cfg)
+    return RenderOut(image, final_t, n_contrib, pre.radii, ss.means2d_ndc, pre.radii > 0,
+                     required, total_aligned)

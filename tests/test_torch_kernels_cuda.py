@@ -1,0 +1,171 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
+has no CPU mode).  The file imports no JAX, so it also runs on a machine
+that has only the port's dependencies:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+
+Bars: ordered fill and binning bitwise; composite rgb rtol 1e-4 / atol
+2e-5, final_T atol 2e-6, n_contrib exact (same inputs on both sides).  A
+whole render, card vs CPU: image rtol 1e-4 / atol 2e-5 and final_T rtol
+1e-4 / atol 2e-6 (the reference's bars), except at knife-edge pixels.  The
+card's expf/sinf and matmul sums round apart from the CPU's by an ulp or
+two, so a splat whose alpha sits on the 1/255 threshold can blend on one
+device and not the other: at most 0.1% of pixels may then differ, each by
+at most what one such splat moves it (2/255 in rgb, 1/255 in T).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gs_deformable_tpu_torch import config
+from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+from gs_deformable_tpu_torch.models.gaussians import GaussianState
+from gs_deformable_tpu_torch.ops import binning as tbin
+from gs_deformable_tpu_torch.ops import projection, transforms
+from gs_deformable_tpu_torch.ops.kernels import composite as comp
+from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as of
+from gs_deformable_tpu_torch.ops.rasterize import prepare_tiles
+from gs_deformable_tpu_torch.renderer import CameraArrays, render
+
+pytestmark = pytest.mark.cuda
+
+PREFIX_CASES = [(0, 500, 4096, 0.5), (1, 2000, 2000, 1.0), (2, 64, 8192, 0.0),
+                (3, 3000, 1000, 0.3), (4, 1, 1, 1.0), (6, 40000, 300_000, 0.9)]
+PLACE_CASES = [(0, 500, 4096, 0.5), (1, 2000, 2000, 1.0), (2, 64, 8192, 0.0),
+               (5, 2048, 600_000, 1.0)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _positions(seed, n, K, frac_valid):
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.choice(max(K, 1), min(int(n * frac_valid), K), replace=False))
+    tail = K + 7 + np.arange(n - pos.shape[0])  # ascending out-of-range rows
+    return np.concatenate([pos, tail]).astype(np.int32), rng
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("seed,n,K,frac", PREFIX_CASES)
+def test_prefix_fill_kernel_bitwise(cuda, seed, n, K, frac, C):
+    pos, rng = _positions(seed, n, K, frac)
+    delta = rng.integers(-(1 << 20), 1 << 20, (n, C)).astype(np.int32)
+    p, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(delta).to(cuda)
+    before = launch_counts()["ordered_prefix_fill"]
+    got = of.ordered_prefix_fill(p, d, K)
+    torch.cuda.synchronize()
+    assert launch_counts()["ordered_prefix_fill"] == before + 1
+    assert torch.equal(got.cpu(), of.prefix_fill_plain(p.cpu(), d.cpu(), K))
+
+
+@pytest.mark.parametrize("seed,n,K,frac", PLACE_CASES)
+def test_place_kernel_bitwise(cuda, seed, n, K, frac):
+    pos, rng = _positions(seed, n, K, frac)
+    vals = rng.integers(0, 1 << 20, n).astype(np.int32)
+    p, v = torch.from_numpy(pos).to(cuda), torch.from_numpy(vals).to(cuda)
+    got = of.ordered_place_i32(p, v, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), of.place_plain(p.cpu(), v.cpu(), K))
+
+
+def _screen(seed, n, W, H, opaque, device):
+    rng = np.random.default_rng(seed)
+    fovx, fovy = 0.9, 0.7
+    view = np.eye(4, dtype=np.float32)
+    full = view @ transforms.projection_matrix(0.01, 100.0, fovx, fovy)
+    means = np.stack([rng.uniform(-1.6, 1.6, n), rng.uniform(-1.0, 1.0, n),
+                      rng.uniform(2.5, 9.0, n)], -1).astype(np.float32)
+    means[: n // 4, 2] = 4.0  # exact depth ties
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    s = np.exp(rng.normal(size=(n, 3)) * 0.5 - (1.6 if opaque else 2.4)).astype(np.float32)
+    opac = rng.uniform(*((0.9, 0.999) if opaque else (0.2, 0.98)), n).astype(np.float32)
+    colors = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    t = {k: torch.from_numpy(v).to(device) for k, v in
+         dict(means=means, q=q, s=s, opac=opac, colors=colors, view=view, full=full).items()}
+    pre = projection.preprocess(t["means"], transforms.build_cov3d(t["s"], t["q"]), t["view"],
+                                t["full"], width=W, height=H, tan_fovx=float(np.tan(fovx / 2)),
+                                tan_fovy=float(np.tan(fovy / 2)), opacities=t["opac"])
+    return (pre.means2d_pix, pre.depths, pre.conics, t["opac"], t["colors"], pre.rect,
+            pre.tiles_touched)
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_binning_and_composite_kernels(cuda, opaque, chunk):
+    W, H = 160, 96
+    gx, gy = W // 16, H // 16
+    args = _screen(3 + opaque, 1500, W, H, opaque, cuda)
+    cfg = config.RasterizeConfig(instance_capacity=1 << 15, chunk=chunk)
+    splats_t, binning = prepare_tiles(*args, grid_x=gx, grid_y=gy, cfg=cfg)
+    ref_splats, ref_bin = prepare_tiles(*(a.cpu() for a in args), grid_x=gx, grid_y=gy, cfg=cfg)
+    for name in tbin.Binning._fields:
+        assert torch.equal(getattr(binning, name).cpu(), getattr(ref_bin, name)), name
+    kw = dict(grid_x=gx, chunk=chunk)
+    tables = (binning.tile_chunk_start, binning.tile_count)
+    got = comp.composite_forward(splats_t, *tables, **kw)
+    ref = comp.composite_forward_plain(splats_t, *tables, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, 0:3], ref[:, 0:3], rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(got[:, 3], ref[:, 3], rtol=0, atol=2e-6)
+    assert torch.equal(got[:, 4], ref[:, 4])
+    if opaque:
+        assert float(got[:, 3].min()) < 1e-3  # pixels terminated early
+
+
+def test_render_card_matches_cpu(cuda):
+    W, H, n, cap = 320, 176, 3000, 4096
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.2, 1.2, n),
+                    rng.uniform(2.5, 12, n)], -1).astype(np.float32)
+
+    def pad(a):
+        return np.pad(a, [(0, cap - n)] + [(0, 0)] * (a.ndim - 1))
+
+    rot = np.zeros((cap, 4), np.float32)
+    rot[:, 0] = 1.0
+    arrays = {"xyz": pad(pts), "f_dc": pad(rng.normal(size=(n, 1, 3)).astype(np.float32)),
+              "f_rest": pad(0.1 * rng.normal(size=(n, 15, 3)).astype(np.float32)),
+              "opacity": pad(rng.normal(size=(n, 1)).astype(np.float32)),
+              "scaling": pad(np.log(0.02 * rng.uniform(0.5, 2, (n, 3))).astype(np.float32)),
+              "rotation": rot, "alive": pad(np.ones(n, bool))}
+    cfg = config.Config(deform=config.DeformConfig(compute_dtype="float32"),
+                        raster=config.RasterizeConfig(instance_capacity=1 << 16))
+    fov = 1.0
+    fovy = 2 * np.arctan(np.tan(fov / 2) * H / W)
+    view = np.eye(4, dtype=np.float32)
+    full = view @ transforms.projection_matrix(0.01, 100.0, fov, fovy)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        state = GaussianState.from_numpy(arrays, device=dev)
+        net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device=dev)
+        cam = CameraArrays.from_numpy(view, full, np.zeros(3), 0.4, device=dev)
+        before = launch_counts()
+        out, _ = render(state, net, cam, iteration=5000, bg=torch.zeros(3, device=dev),
+                        width=W, height=H, tan_fovx=float(np.tan(fov / 2)),
+                        tan_fovy=float(np.tan(fovy / 2)), active_sh_degree=3, cfg=cfg,
+                        device=dev)
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        want = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
+        assert launched == (want if dev.type == "cuda" else dict.fromkeys(want, 0))
+        outs.append(out)
+    g, c = outs
+    assert float(g.image.std()) > 1e-3
+    assert_close_but_knife_edges(g.image.cpu(), c.image, atol=2e-5, knife=2 / 255)
+    assert_close_but_knife_edges(g.final_t.cpu(), c.final_t, atol=2e-6, knife=1 / 255)
+
+
+def assert_close_but_knife_edges(got, ref, *, atol, knife, rtol=1e-4, max_frac=1e-3):
+    """The bar everywhere but at <= max_frac of elements, each within ``knife``."""
+    err = (got - ref).abs()
+    off = err > atol + rtol * ref.abs()
+    assert int(off.sum()) <= max_frac * off.numel(), f"{int(off.sum())} elements off the bar"
+    assert float(err.max()) <= knife, f"max error {float(err.max())} beyond one knife-edge splat"
