@@ -31,8 +31,36 @@ Phases (any failure raises and the script exits non-zero):
    versions), held to the phase-4 bars with no allowance: n_contrib and the
    binning's counts exact.
 
-With ``--profile`` it also traces two frames with torch.profiler and prints
-the device time by kernel name (the breakdown of PERF.md section 5).
+6. the train path at full width: the bench.py train workload (bench.py:63,
+   229-266, 90-106; 100k gaussians in capacity 131,072, SH degree 3, the
+   8x256 offset net in the bf16 tier at iteration 5000, 800x800,
+   composite_mode "mixed", grad_reduce "sort", instance capacity 262,144,
+   aligned slack 180,224 so Kp 442,368) through training.make_train_step:
+   (a) with bench.py's zeroed learning rates (the full forward, backward and
+   Adam still run) a warm-up step, then timed steps; counters zeroed just
+   before and read just after; each step must launch the composite forward
+   and backward once, the prefix fill twice and the place once, fit its
+   capacities, and give a finite loss and finite gradients; (b) 10 steps
+   with the default learning rates at a fixed camera, time and target
+   (instance capacity 524,288, worst-case slack) must not overflow and must
+   end with a lower loss than they start;
+7. the composite backward kernel against its plain version on the phase-6
+   frame's binning and a seeded upstream gradient: gradient rows rtol 5e-4 /
+   atol 2e-5 x the row's max |g| (tests/test_rasterize.py:98), bitwise equal
+   over two launches, with its median time, the plain version's time and
+   its bound (no one PyTorch call computes it: library "none");
+8. one train step of a reduced scene (640x360, 5k gaussians, fp32 MLP tier)
+   on the card and on the CPU from the same state: loss rtol 1e-4, and the
+   per-group gradients (read from adam.mu) at rtol 1e-3 / atol 5e-5 x scale
+   except at <= 0.1% knife-edge elements (a splat that blends on one device
+   and not the other changes its whole gradient row).  Then the card's
+   screen-space arrays and one seeded image-space gradient go through
+   binning, composite forward/backward and the segment sum on both devices,
+   held to rtol 5e-4 / atol 2e-5 x scale with no allowance.
+
+With ``--profile`` it also traces two frames and two train steps with
+torch.profiler and prints the device time by kernel name (the breakdowns of
+PERF.md section 5).
 
 Prints a JSON line of kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -58,6 +86,21 @@ INSTANCE_CAPACITY, ALIGNED_SLACK = 576 * 1024, 640 * 1024  # bench.py:64
 FRAMES = 6
 ITERATION = 10_000
 PROFILE = "--profile" in sys.argv[1:]
+
+RENDER_LAUNCHES = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
+STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1)
+TRAIN_W = TRAIN_H = 800
+TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
+LEARN_ICAP = 512 * 1024
+TRAIN_ITERATION = 5000  # past the 3000-iteration warmup
+TRAIN_STEPS = 6  # timed, after one warm-up step
+LEARN_STEPS = 10
+# Backward, per contributing pair beyond the forward's 16 per evaluated
+# pair: T update 2, weight 1, colour dot 5, prefix 2, dalpha 5, gg 2, the
+# nine gradient terms 20.  Per instance with a nonzero row, one 256-wide
+# sum of 9 values: 9 x 255 adds.
+OPS_PER_CONTRIBUTING_PAIR_BWD = 37
+OPS_PER_REDUCED_INSTANCE = 9 * 255
 
 
 def log(*a):
@@ -221,14 +264,15 @@ def check_place(torch, timer, rng, n, Kp, tiles, mean_count):
     return rec
 
 
-def screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height):
+def screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height,
+                  iteration=ITERATION):
     """The render path's screen-space arrays, the rasterizer's positional inputs:
     (means2d_pix, depths, conics, opacities, colors, rect, tiles_touched)."""
     from gs_deformable_tpu_torch import renderer
     from gs_deformable_tpu_torch.ops import rasterize
 
     with torch.no_grad():
-        m, s, r, o, shs, _ = renderer.deformed_attributes(state, net, cam.time, ITERATION, cfg)
+        m, s, r, o, shs, _ = renderer.deformed_attributes(state, net, cam.time, iteration, cfg)
         ss = rasterize.screen_space(m, s, r, o, shs, viewmatrix=cam.world_view,
                                     projmatrix=cam.full_proj, campos=cam.camera_center,
                                     width=width, height=height, tan_fovx=tanx, tan_fovy=tany,
@@ -237,14 +281,16 @@ def screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height):
             ss.pre.rect, ss.pre.tiles_touched)
 
 
-def frame_tiles(torch, state, net, cam, tanx, tany, cfg):
-    """The composite's inputs on the render path: (splats_t, binning, grid_x)."""
+def frame_tiles(torch, state, net, cam, tanx, tany, cfg, width=W, height=H,
+                iteration=ITERATION):
+    """The composite's inputs on a frame of the main path: (splats_t, binning, grid_x)."""
     from gs_deformable_tpu_torch.ops import rasterize
 
-    gx, gy = (W + 15) // 16, (H + 15) // 16
-    splats_t, binning = rasterize.prepare_tiles(
-        *screen_arrays(torch, state, net, cam, tanx, tany, cfg, W, H),
-        grid_x=gx, grid_y=gy, cfg=cfg.raster)
+    gx, gy = (width + 15) // 16, (height + 15) // 16
+    with torch.no_grad():
+        splats_t, binning = rasterize.prepare_tiles(
+            *screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height, iteration),
+            grid_x=gx, grid_y=gy, cfg=cfg.raster)
     return splats_t, binning, gx
 
 
@@ -306,14 +352,14 @@ def reduced_scene_check(torch):
         net = OffsetNet(params, cfg.deform, device=dev)
         cam, tanx, tany = camera(w, h, 0.25, dev)
         reset_launch_counts()
-        out, _ = render(state, net, cam, iteration=ITERATION, bg=torch.zeros(3, device=dev),
-                        width=w, height=h, tan_fovx=tanx, tan_fovy=tany,
-                        active_sh_degree=3, cfg=cfg, device=dev)
+        with torch.no_grad():
+            out, _ = render(state, net, cam, iteration=ITERATION,
+                            bg=torch.zeros(3, device=dev), width=w, height=h, tan_fovx=tanx,
+                            tan_fovy=tany, active_sh_degree=3, cfg=cfg, device=dev)
         counts = launch_counts()
         if dev == "cpu" and any(counts.values()):
             raise AssertionError(f"CPU render launched kernels: {counts}")
-        if dev == "cuda" and counts != {"composite_forward": 1, "ordered_prefix_fill": 2,
-                                        "ordered_place_i32": 1}:
+        if dev == "cuda" and counts != dict(RENDER_LAUNCHES, composite_backward=0):
             raise AssertionError(f"reduced render launch counts {counts}")
         if int(out.required_instances) > cfg.raster.instance_capacity:
             raise AssertionError("reduced scene overflowed its instance capacity")
@@ -367,18 +413,18 @@ def knife_edge_close(got, ref, *, atol, knife, rtol=1e-4, max_frac=1e-3):
     return float(err.max()), off
 
 
-def profile_frames(torch, run, state, net, cams, bg, frame_ms):
-    """Device time by kernel over ``len(cams)`` frames, from torch.profiler.
+def profile_calls(torch, fn, reps, host_ms, label):
+    """Device time by kernel over ``reps`` calls of ``fn``, from torch.profiler.
 
     Only device-side kernel events are summed (an aten op's device time is
-    its kernels'), so the busy share is kernel time over the frame's host time.
+    its kernels'), so the busy share is kernel time over the call's host time.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for c in cams:
-            run(state, net, c, bg, ITERATION)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -387,18 +433,272 @@ def profile_frames(torch, run, state, net, cams, bg, frame_ms):
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
-        rows.append({"name": ev.key[:100], "launches_per_frame": ev.count / len(cams),
-                     "device_ms_per_frame": dev_us / 1e3 / len(cams)})
-    rows.sort(key=lambda r: -r["device_ms_per_frame"])
-    busy = sum(r["device_ms_per_frame"] for r in rows)
-    launches = sum(r["launches_per_frame"] for r in rows)
-    log(f"  profile: kernels busy {busy:.3f} ms/frame ({launches:.0f} launches/frame), "
-        f"{busy / frame_ms:.1%} of the {frame_ms:.3f} ms frame")
-    for r in rows[:20]:
-        log(f"    {r['device_ms_per_frame']:8.4f} ms  x{r['launches_per_frame']:<5.0f} "
+        rows.append({"name": ev.key[:100], "launches_per_call": ev.count / reps,
+                     "device_ms_per_call": dev_us / 1e3 / reps})
+    rows.sort(key=lambda r: -r["device_ms_per_call"])
+    busy = sum(r["device_ms_per_call"] for r in rows)
+    launches = sum(r["launches_per_call"] for r in rows)
+    log(f"  profile ({label}): kernels busy {busy:.3f} ms/{label} ({launches:.0f} launches/"
+        f"{label}), {busy / host_ms:.1%} of the {host_ms:.3f} ms {label}")
+    for r in rows[:25]:
+        log(f"    {r['device_ms_per_call']:8.4f} ms  x{r['launches_per_call']:<5.0f} "
             f"{r['name']}")
-    return {"kernel_ms_per_frame": busy, "launches_per_frame": launches,
-            "busy_share": busy / frame_ms, "kernels": rows}
+    return {"kernel_ms_per_call": busy, "launches_per_call": launches,
+            "busy_share": busy / host_ms, "kernels": rows}
+
+
+def zero_lr_opt(config):
+    """bench.py:238-245: every learning rate 0, so the measured steps run the
+    full forward, backward and Adam on a scene that does not change."""
+    return config.OptimizationConfig(
+        position_lr_init=0.0, position_lr_final=0.0, offset_lr_init=0.0,
+        offset_lr_final=0.0, feature_lr=0.0, opacity_lr=0.0, scaling_lr=0.0,
+        rotation_lr=0.0)
+
+
+def train_setup(torch, cfg, n, cap, width, height, device, seed=0):
+    """(TrainState, camera, ground truth, step) for the bench scene at one size."""
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.training import init_train_state, make_train_step
+
+    state = scene(torch, n, cap, seed=seed, device=device)
+    net = OffsetNet(init_offset_params(seed, cfg.deform), cfg.deform, device=device)
+    cam, tanx, tany = camera(width, height, 0.5, device)
+    gt = np.random.default_rng(seed + 100).uniform(0, 1, (3, height, width))
+    gt = torch.from_numpy(gt.astype(np.float32)).to(device)
+    step = make_train_step(cfg, width=width, height=height, tan_fovx=tanx, tan_fovy=tany,
+                           active_sh_degree=3, spatial_lr_scale=1.0, device=device)
+    return init_train_state(state, net), cam, gt, step, (tanx, tany)
+
+
+def mu_leaves(ts):
+    """(group, tensor) pairs of the Adam first moments (0.1 g after one step)."""
+    from gs_deformable_tpu_torch.models.gaussians import tree_leaves
+
+    return [(k, t) for k, v in ts.adam.mu.items() for t in tree_leaves(v)]
+
+
+def train_phase(torch):
+    """Phase 6 (a): timed steps of the 800x800 train workload, zeroed learning rates."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = config.Config(raster=config.RasterizeConfig(
+        instance_capacity=TRAIN_ICAP, chunk=128, aligned_slack=TRAIN_SLACK),
+        opt=zero_lr_opt(config))
+    Kp = aligned_capacity(TRAIN_ICAP, (TRAIN_W // 16) * (TRAIN_H // 16), 128, TRAIN_SLACK)
+    ts, cam, gt, step, tans = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
+                                          "cuda")
+    bg = torch.zeros(3, device="cuda")
+    ts, _ = step(ts, cam, gt, bg, TRAIN_ITERATION)  # warm-up step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step_ms, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ts, m = step(ts, cam, gt, bg, TRAIN_ITERATION)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    counts = launch_counts()
+    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    log(f"  launches over {TRAIN_STEPS} steps: {counts}")
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    reqs = [(int(m["required_instances"]), int(m["required_aligned"])) for m in metrics]
+    for req, req_al in reqs:
+        if req > TRAIN_ICAP or req_al > Kp:
+            raise AssertionError(f"train capacity overflow: {req}/{TRAIN_ICAP}, {req_al}/{Kp}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train loss not finite: {losses}")
+    for name, t in mu_leaves(ts):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite gradient in group {name}")
+    if not any(bool(t.any()) for _, t in mu_leaves(ts)):
+        raise AssertionError("every gradient is zero")
+    med = float(np.median(step_ms))
+    log(f"  steps: {[round(x, 3) for x in step_ms]} ms; median {med:.3f} ms/step; loss "
+        f"{losses[-1]:.6f}; required instances {reqs[-1][0]} / {TRAIN_ICAP}, aligned "
+        f"{reqs[-1][1]} / {Kp}")
+    breakdown = None
+    if PROFILE:
+        holder = [ts]
+
+        def one():
+            holder[0], _ = step(holder[0], cam, gt, bg, TRAIN_ITERATION)
+
+        breakdown = profile_calls(torch, one, 2, med, "step")
+    rec = {"width": TRAIN_W, "height": TRAIN_H, "steps": TRAIN_STEPS, "step_ms": step_ms,
+           "step_ms_median": med, "loss": losses, "required_instances": reqs[-1][0],
+           "required_aligned": reqs[-1][1], "instance_capacity": TRAIN_ICAP, "Kp": Kp,
+           "launches": counts, "breakdown": breakdown}
+    return rec, ts, cam, cfg, tans
+
+
+def learning_phase(torch):
+    """Phase 6 (b): default learning rates, fixed camera, time and target."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
+
+    cfg = config.Config(raster=config.RasterizeConfig(instance_capacity=LEARN_ICAP, chunk=128))
+    Kp = aligned_capacity(LEARN_ICAP, (TRAIN_W // 16) * (TRAIN_H // 16), 128)
+    ts, cam, gt, step, _ = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
+                                       "cuda")
+    bg = torch.zeros(3, device="cuda")
+    losses, reqs = [], []
+    for i in range(LEARN_STEPS):
+        ts, m = step(ts, cam, gt, bg, TRAIN_ITERATION + i)
+        losses.append(float(m["loss"]))
+        reqs.append((int(m["required_instances"]), int(m["required_aligned"])))
+    if max(r for r, _ in reqs) > LEARN_ICAP or max(r for _, r in reqs) > Kp:
+        raise AssertionError(f"learning run overflowed: {reqs}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over {LEARN_STEPS} steps: {losses}")
+    log(f"  {LEARN_STEPS} steps at live learning rates: loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; required instances {reqs[0][0]} -> {reqs[-1][0]} / {LEARN_ICAP}")
+    return {"steps": LEARN_STEPS, "loss": losses, "required_instances": [r for r, _ in reqs],
+            "required_aligned": [r for _, r in reqs], "instance_capacity": LEARN_ICAP, "Kp": Kp}
+
+
+def assert_rows_close(torch, got, ref, what):
+    """Per field (row): rtol 5e-4 / atol 2e-5 x max |ref| (tests/test_rasterize.py:98)."""
+    for r in range(ref.shape[0]):
+        scale = float(ref[r].abs().max()) + 1e-30
+        torch.testing.assert_close(got[r], ref[r], rtol=5e-4, atol=2e-5 * scale,
+                                   msg=lambda m: f"{what} field {r}: {m}")
+
+
+def check_backward(torch, timer, splats_t, binning, grid_x, cfg):
+    """Phase 7: the backward kernel vs its plain version at the train-path shapes."""
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp
+
+    kw = dict(grid_x=grid_x, chunk=cfg.raster.chunk, alpha_max=cfg.raster.alpha_max,
+              alpha_min=cfg.raster.alpha_min, eps=cfg.raster.transmittance_eps)
+    tables = (splats_t, binning.tile_chunk_start, binning.tile_count)
+    fwd_out, work = comp.composite_forward_plain(*tables, count_work=True, **kw)
+    out = comp.composite_forward(*tables, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out[:, 4], fwd_out[:, 4]):
+        raise AssertionError("train frame: composite n_contrib differs from its plain version")
+    rng = np.random.default_rng(7)
+    grad = torch.zeros_like(out)
+    grad[:, 0:4] = torch.from_numpy(
+        rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)).cuda()
+    args = (*tables, out, grad)
+    got = comp.composite_backward(*args, **kw)
+    again = comp.composite_backward(*args, **kw)
+    ref = comp.composite_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("composite_backward is not bitwise repeatable")
+    assert_rows_close(torch, got[:9], ref[:9], "composite_backward")
+    if bool(got[9:].any()):
+        raise AssertionError("composite_backward rows 9..15 must be zero")
+    err = float((got - ref).abs().max())
+    rel = max(float((got[r] - ref[r]).abs().max() / (ref[r].abs().max() + 1e-30))
+              for r in range(9))
+    T, Kp = out.shape[0], splats_t.shape[1]
+    walked = int(out[:, 4].sum())  # pairs before each pixel's n_contrib
+    reduced = int(ref[:9].ne(0).any(0).sum())  # instances with a nonzero row
+    ops = (walked * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR_BWD
+           + reduced * OPS_PER_REDUCED_INSTANCE)
+    b_bytes = bytes_ms(2 * 16 * Kp * 4 + T * 16 * 256 * 4)
+    b_ops = ops / FP32_OPS_PER_S * 1e3
+    rec = {
+        "shape": "800x800 train frame", "tiles": T, "Kp": Kp,
+        "instances": int(binning.tile_count.sum()), "walked_pairs": walked,
+        "contributing_pairs": work.contributing, "reduced_instances": reduced,
+        "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
+        "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
+        "library_ms": None,
+        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
+    }
+    log(f"  composite_backward: T={T} Kp={Kp} instances={rec['instances']} walked pairs="
+        f"{walked} contributing={work.contributing} nonzero rows={reduced}  kernel "
+        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']})  max err {err:.3g} ({rel:.3g} of the row's scale)  "
+        "bitwise repeatable")
+    return rec
+
+
+def reduced_step_check(torch):
+    """Phase 8: one reduced train step on the card (kernels) and the CPU (plain)."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    w, h = 640, 360
+    cfg = config.Config(deform=config.DeformConfig(compute_dtype="float32"),
+                        raster=config.RasterizeConfig(instance_capacity=1 << 16))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ts, cam, gt, step, (tanx, tany) = train_setup(torch, cfg, 5000, 8192, w, h, dev,
+                                                      seed=1)
+        if dev == "cuda":
+            screen = screen_arrays(torch, ts.gaussians, ts.net, cam, tanx, tany, cfg, w, h)
+        reset_launch_counts()
+        ts, m = step(ts, cam, gt, torch.zeros(3, device=dev), ITERATION)
+        counts = launch_counts()
+        want = STEP_LAUNCHES if dev == "cuda" else dict.fromkeys(STEP_LAUNCHES, 0)
+        if counts != want:
+            raise AssertionError(f"reduced step on {dev} launched {counts}, expected {want}")
+        res[dev] = (float(m["loss"]), [(k, t.cpu()) for k, t in mu_leaves(ts)])
+    (lg, mg), (lc, mc) = res["cuda"], res["cpu"]
+    if not abs(lg - lc) <= 1e-4 * abs(lc):
+        raise AssertionError(f"reduced step loss card {lg} vs CPU {lc}")
+    # A knife-edge splat changes its gaussian's whole gradient row and, through
+    # the MLP backward, moves every net gradient a little: the allowance is
+    # over all gradient elements of the step together.
+    worst, off_by_group, n_total = 0.0, {}, 0
+    for (k, g), (_, c) in zip(mg, mc):
+        err = (g - c).abs()
+        scale = float(c.abs().max()) + 1e-30
+        off_by_group[k] = off_by_group.get(k, 0) + int((err > 1e-3 * c.abs() + 5e-5 * scale).sum())
+        worst = max(worst, float(err.max()) / scale)
+        n_total += err.numel()
+    off_total = sum(off_by_group.values())
+    log(f"  reduced step card vs CPU: loss {lg:.7f} vs {lc:.7f}; gradients: {off_total} of "
+        f"{n_total} off the bar {off_by_group} (max error {worst:.3g} of the leaf's scale)")
+    if off_total > 1e-3 * n_total:
+        raise AssertionError(f"reduced step: {off_total} of {n_total} gradients off the bar")
+    same = same_input_grad_check(torch, screen, w, h, cfg)
+    log(f"  same screen-space inputs, card vs CPU gradients: max error "
+        f"{same['max_err_over_scale']:.3g} of the field's scale, no element off the bar")
+    return {"width": w, "height": h, "gaussians": 5000, "loss_card": lg, "loss_cpu": lc,
+            "grad_elements_off_bar": off_total, "grad_elements_off_bar_by_group": off_by_group,
+            "grad_elements": n_total,
+            "grad_max_err_over_scale": worst, "same_input": same}
+
+
+def same_input_grad_check(torch, screen, w, h, cfg):
+    """The card's screen-space arrays and one seeded image-space gradient
+    through binning, composite forward/backward and the segment sum, on the
+    card (kernels) and the CPU (plain versions): rtol 5e-4 / atol 2e-5 x scale
+    per field, with no allowance."""
+    from gs_deformable_tpu_torch.ops.rasterize import rasterize_arrays
+
+    rng = np.random.default_rng(9)
+    wimg = rng.normal(size=(3, h, w)).astype(np.float32)
+    wt = rng.normal(size=(h, w)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = [screen[i].detach().to(dev).requires_grad_(True) for i in (0, 2, 3, 4)]
+        img, final_t, *_ = rasterize_arrays(
+            xs[0], screen[1].to(dev), xs[1], xs[2], xs[3], screen[5].to(dev),
+            screen[6].to(dev), torch.zeros(3, device=dev), width=w, height=h, cfg=cfg.raster)
+        loss = (img * torch.from_numpy(wimg).to(dev)).sum() + (
+            final_t * torch.from_numpy(wt).to(dev)).sum()
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, xs)]
+    worst = 0.0
+    for name, g, c in zip(("means2d", "conics", "opacities", "colors"), grads["cuda"],
+                          grads["cpu"]):
+        scale = float(c.abs().max()) + 1e-30
+        torch.testing.assert_close(g, c, rtol=5e-4, atol=2e-5 * scale,
+                                   msg=lambda m: f"same-input {name} gradient: {m}")
+        worst = max(worst, float((g - c).abs().max()) / scale)
+    return {"max_err_over_scale": worst}
 
 
 def main():
@@ -454,8 +754,8 @@ def main():
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
-    want = {"composite_forward": FRAMES, "ordered_prefix_fill": 2 * FRAMES,
-            "ordered_place_i32": FRAMES}
+    want = {k: v * FRAMES for k, v in RENDER_LAUNCHES.items()}
+    want["composite_backward"] = 0
     log(f"  launches over {FRAMES} frames: {counts}")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -463,8 +763,9 @@ def main():
 
     reqs = []
     for c in cams[:2]:
-        out, _ = render(state, net, c, iteration=ITERATION, bg=bg, width=W, height=H,
-                        tan_fovx=tanx, tan_fovy=tany, active_sh_degree=3, cfg=cfg)
+        with torch.no_grad():
+            out, _ = render(state, net, c, iteration=ITERATION, bg=bg, width=W, height=H,
+                            tan_fovx=tanx, tan_fovy=tany, active_sh_degree=3, cfg=cfg)
         reqs.append((int(out.required_instances), int(out.required_aligned)))
     for img in images:
         if img.shape != (3, H, W) or not bool(torch.isfinite(img).all()):
@@ -477,8 +778,9 @@ def main():
         if req > INSTANCE_CAPACITY or req_al > Kp:
             raise AssertionError(f"capacity overflow: {req}/{INSTANCE_CAPACITY}, {req_al}/{Kp}")
     frame_med = float(np.median(frame_ms))
-    breakdown = (profile_frames(torch, run, state, net, cams[:2], bg, frame_med)
-                 if PROFILE else None)
+    frames = iter(cams[:2] * 2)
+    breakdown = (profile_calls(torch, lambda: run(state, net, next(frames), bg, ITERATION), 2,
+                               frame_med, "frame") if PROFILE else None)
     log(f"  frames: {[round(x, 3) for x in frame_ms]} ms; median {frame_med:.3f} ms/frame; "
         f"required instances {reqs[0][0]} / {INSTANCE_CAPACITY}, aligned {reqs[0][1]} / {Kp}")
 
@@ -498,21 +800,41 @@ def main():
 
     log("phase 5: reduced scene, card vs CPU")
     reduced = reduced_scene_check(torch)
+    del state, net, splats_t, binning
+
+    log(f"phase 6: train path at {TRAIN_W}x{TRAIN_H}, 100k gaussians, 8x256 bf16 offset net, "
+        f"iteration {TRAIN_ITERATION}")
+    train, ts, tcam, tcfg, (ttanx, ttany) = train_phase(torch)
+    train_counts = train["launches"]
+    learning = learning_phase(torch)
+
+    log("phase 7: composite backward vs its plain version at the train-path shapes")
+    splats_t, binning, gx = frame_tiles(torch, ts.gaussians, ts.net, tcam, ttanx, ttany, tcfg,
+                                        TRAIN_W, TRAIN_H, TRAIN_ITERATION)
+    bwd = check_backward(torch, timer, splats_t, binning, gx, tcfg)
+    del ts, splats_t, binning
+
+    log("phase 8: reduced train step, card vs CPU")
+    reduced_step = reduced_step_check(torch)
 
     def total(key, recs):
         return sum(r[key] for r in recs)
 
+    # "launches": this slice's main path, the train steps of phase 6 (a);
+    # "launches_render": the render path of phase 3.
     kernels = [
         {"name": "composite_forward", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/composite.py:272",
-         "launches": counts["composite_forward"], "max_abs_err": comp["max_abs_err"],
+         "launches": train_counts["composite_forward"],
+         "launches_render": counts["composite_forward"], "max_abs_err": comp["max_abs_err"],
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
          "bound_by": comp["bound_by"], "library_ms": None, "calls": [comp]},
         {"name": "ordered_prefix_fill", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
-         "launches": counts["ordered_prefix_fill"], "max_abs_err": 0.0,
+         "launches": train_counts["ordered_prefix_fill"],
+         "launches_render": counts["ordered_prefix_fill"], "max_abs_err": 0.0,
          "ms": total("ms", [front, relay]), "plain_ms": total("plain_ms", [front, relay]),
          "bound_ms": total("bound_ms", [front, relay]), "bound_by": "bytes",
          "library_ms": total("library_ms", [front, relay]),
@@ -521,17 +843,26 @@ def main():
         {"name": "ordered_place_i32", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
-         "launches": counts["ordered_place_i32"], "max_abs_err": 0.0,
+         "launches": train_counts["ordered_place_i32"],
+         "launches_render": counts["ordered_place_i32"], "max_abs_err": 0.0,
          "ms": place["ms"], "plain_ms": place["plain_ms"], "bound_ms": place["bound_ms"],
          "bound_by": "bytes", "library_ms": place["library_ms"],
          "library_call": "scatter_", "calls": [place]},
+        {"name": "composite_backward", "route": "cuda",
+         "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
+         "replaces": "gs_deformable_tpu/ops/pallas/stream_composite.py:168",
+         "launches": train_counts["composite_backward"],
+         "launches_render": counts["composite_backward"], "max_abs_err": bwd["max_abs_err"],
+         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+         "bound_by": bwd["bound_by"], "library_ms": None, "calls": [bwd]},
     ]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "frames": FRAMES, "frame_ms": frame_ms,
         "frame_ms_median": frame_med, "required_instances": reqs[0][0],
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
-        "reduced": reduced, "kernels": kernels, "breakdown": breakdown,
+        "reduced": reduced, "train": train, "learning": learning,
+        "reduced_step": reduced_step, "kernels": kernels, "breakdown": breakdown,
         "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)

@@ -5,8 +5,9 @@ stream and return ``cudaGetLastError()``.  ``build_all`` starts one ``nvcc``
 per source, all at once, and waits for them; ``load(name)`` builds (if
 needed) and opens one library.  Libraries land in ``kernels_build/`` inside
 the package (listed in ``.gitignore``) under a name keyed by a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing is built at import time: the CPU has no ``nvcc``.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  Nothing is built at import
+time: the CPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "kernels_build")
-SOURCES = ("ordered_fill", "composite_fwd")
+SOURCES = ("ordered_fill", "composite_fwd", "composite_bwd")
 
 # -fmad=false: the composite's float ops round one by one, as the plain
 # PyTorch version's separate elementwise kernels do, so the two agree on
-# every knife-edge termination test (n_contrib is compared exactly).
+# every knife-edge termination test (n_contrib is compared exactly), and the
+# backward's recomputed transmittance equals the forward's.
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,9 +49,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{h[:16]}.so")
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -4,12 +4,12 @@ reads the same in the other.
 
 Knobs split three ways in this port:
 
-- implemented: everything the deformable render path reads;
+- implemented: everything the deformable render path and the training
+  step read, ``grad_reduce`` and ``bf16_cotangents`` included;
 - documented no-ops: knobs that only shaped the TPU schedule (``tile_batch``,
   ``stream_chunks``, ``scan_mode``, ``defer_fwd_reductions``, ``block_rows``,
-  ``fill_mode``) or only matter to training (``grad_reduce``,
-  ``bf16_cotangents``).  The CUDA kernels compute the same values whatever
-  they are set to;
+  ``fill_mode``).  The CUDA kernels compute the same values whatever they
+  are set to;
 - not yet ported: ``check_supported`` raises ``NotImplementedError`` naming
   the slice of the port that will bring them.
 """
@@ -50,7 +50,9 @@ class DeformConfig:
     # "float32_3x" (the TPU's 3-pass bf16 tier, ~1e-6 relative) runs as
     # "float32" here.
     compute_dtype: str = "bfloat16"
-    bf16_cotangents: bool = False  # training only; no-op in this port
+    # bfloat16 tier only: True rounds each layer's cotangent to bf16 before
+    # both transposed products (fp32 sums), as the JAX _bf16_mm backward.
+    bf16_cotangents: bool = False
     block_rows: int = 65536  # TPU code-size knob; no-op in this port
 
 
@@ -72,8 +74,8 @@ class RasterizeConfig:
     tile_batch: int = 8  # TPU grid batching; no-op in this port
     opacity_aware_radius: bool = True
     tile_cull: bool = True
-    # "mixed" and "batch" both render through the tile-composite forward
-    # kernel; "stream" and "packed" are not ported yet.
+    # "mixed", "batch" and "stream" compute one function and all run the
+    # tile-composite forward and backward kernels; "packed" is not ported.
     composite_mode: str = "mixed"
     sub_chunk: int = 32
     stream_chunks: int = 8  # TPU stream schedule; no-op in this port
@@ -85,7 +87,9 @@ class RasterizeConfig:
     # the ordered-fill kernel.
     fill_mode: str = "pallas_all"
     scan_mode: str = "linear"  # TPU prefix-product form; no-op in this port
-    grad_reduce: str = "sort"  # training only; no-op in this port
+    # Per-gaussian sum of the composite's gradient rows: "sort" (stable sort
+    # + segmented sum, deterministic) or "scatter" (index_add_).
+    grad_reduce: str = "sort"
     defer_fwd_reductions: bool = False  # TPU reduction schedule; no-op
     transmittance_eps: float = 1e-4
     alpha_max: float = 0.99
@@ -142,17 +146,17 @@ class Config:
 
 _LATER = {
     "se3": "the deformation-variants slice (SE(3) and latent nets)",
-    "schedules": "the composite-schedules slice",
+    "schedules": "the packed-schedule slice",
 }
 
 
 def check_raster(cfg: RasterizeConfig) -> None:
     """Raise for rasterizer knobs this port does not implement yet."""
-    if cfg.composite_mode in ("stream", "packed"):
+    if cfg.composite_mode == "packed":
         raise NotImplementedError(
-            f"composite_mode={cfg.composite_mode!r} arrives with "
-            f"{_LATER['schedules']}; use 'mixed' or 'batch'")
-    if cfg.composite_mode not in ("mixed", "batch"):
+            f"composite_mode='packed' arrives with {_LATER['schedules']}; "
+            "use 'mixed', 'batch' or 'stream'")
+    if cfg.composite_mode not in ("mixed", "batch", "stream"):
         raise ValueError(f"unknown composite_mode {cfg.composite_mode!r}")
     if cfg.sort_mode == "packed":
         raise NotImplementedError(
@@ -162,6 +166,8 @@ def check_raster(cfg: RasterizeConfig) -> None:
         raise ValueError(f"unknown sort_mode {cfg.sort_mode!r}")
     if cfg.fill_mode not in ("scatter", "pallas", "pallas_all"):
         raise ValueError(f"unknown fill_mode {cfg.fill_mode!r}")
+    if cfg.grad_reduce not in ("sort", "scatter"):
+        raise ValueError(f"unknown grad_reduce {cfg.grad_reduce!r}")
 
 
 def check_supported(cfg: Config) -> None:

@@ -36,11 +36,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int ROWS = 8;
+using composite::NPIX;
+using composite::ROWS;
 
 __global__ void __launch_bounds__(NPIX)
 composite_forward_kernel(const float* __restrict__ splats, long long Kp,
@@ -54,8 +55,8 @@ composite_forward_kernel(const float* __restrict__ splats, long long Kp,
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const float px = (float)((t % grid_x) * TILE + p % TILE);
-  const float py = (float)((t / grid_x) * TILE + p / TILE);
+  float px, py;
+  composite::pixel_coords(t, p, grid_x, px, py);
   const long long start = (long long)tile_chunk_start[t] * chunk;
   const int count = tile_count[t];
 
@@ -66,25 +67,12 @@ composite_forward_kernel(const float* __restrict__ splats, long long Kp,
   for (int base = 0; base < count; base += NPIX) {
     if (__syncthreads_count(done) == NPIX) break;
     const int i = base + p;
-    if (i < count) {
-      const long long k = start + i;
-      s_xy[p][0] = splats[0 * Kp + k];
-      s_xy[p][1] = splats[1 * Kp + k];
-      s_con_op[p][0] = splats[2 * Kp + k];
-      s_con_op[p][1] = splats[3 * Kp + k];
-      s_con_op[p][2] = splats[4 * Kp + k];
-      s_con_op[p][3] = splats[5 * Kp + k];
-      s_rgb[p][0] = splats[6 * Kp + k];
-      s_rgb[p][1] = splats[7 * Kp + k];
-      s_rgb[p][2] = splats[8 * Kp + k];
-    }
+    if (i < count) composite::load_splat(s_xy[p], s_con_op[p], s_rgb[p], splats, Kp, start + i);
     __syncthreads();
     const int m = min(NPIX, count - base);
     for (int j = 0; j < m && !done; ++j) {
-      const float dx = s_xy[j][0] - px;
-      const float dy = s_xy[j][1] - py;
-      const float a = s_con_op[j][0], b = s_con_op[j][1], c = s_con_op[j][2];
-      const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
+      float dx, dy;
+      const float power = composite::splat_power(s_xy[j], s_con_op[j], px, py, dx, dy);
       if (power > 0.0f) continue;
       const float alpha = fminf(alpha_max, s_con_op[j][3] * expf(power));
       if (alpha < alpha_min) continue;

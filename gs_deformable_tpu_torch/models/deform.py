@@ -12,8 +12,15 @@ Weights keep the JAX orientation: ``w`` is (in, out) and a layer is
 - "bfloat16" (default): operands rounded to bf16 and multiplied in fp32, as
   the JAX dot with ``preferred_element_type=float32`` does.  A bf16
   ``torch.matmul`` would round its output to bf16 too, which the JAX tier
-  does not;
+  does not.  Autograd rounds each cotangent at the cast back to bf16,
+  exactly as the transpose of JAX's ``astype(bfloat16)`` does;
+- "bfloat16_bwd" (``DeformConfig.bf16_cotangents``): the same forward, and
+  a backward that rounds the incoming cotangent to bf16 before both
+  transposed products (fp32 sums), as JAX's ``_bf16_mm`` (deform.py:71-104);
 - "float32_3x" runs as "float32".
+
+The warmup gate is a Python ``if`` on ``iteration``: during warmup the net
+is not run and gets no gradient.
 """
 
 from __future__ import annotations
@@ -73,12 +80,31 @@ class _Dense(nn.Module):
         self.w = nn.Parameter(w)
         self.b = nn.Parameter(b)
 
-    def forward(self, x: torch.Tensor, bf16: bool) -> torch.Tensor:
-        return _matmul(x, self.w, bf16) + self.b
+    def forward(self, x: torch.Tensor, tier: str) -> torch.Tensor:
+        return _matmul(x, self.w, tier) + self.b
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
-    if bf16:
+class _Bf16CotangentMatmul(torch.autograd.Function):
+    """bf16-rounded operands, fp32 product; the backward rounds the cotangent
+    to bf16 before ``g @ w.T`` and ``x.T @ g`` (JAX's ``_bf16_mm``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        return xb.to(torch.float32) @ wb.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = (t.to(torch.float32) for t in ctx.saved_tensors)
+        gb = g.to(torch.bfloat16).to(torch.float32)
+        return gb @ wb.t(), xb.t() @ gb
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, tier: str) -> torch.Tensor:
+    if tier == "bfloat16_bwd":
+        return _Bf16CotangentMatmul.apply(x, w)
+    if tier == "bfloat16":
         x = x.to(torch.bfloat16).to(torch.float32)
         w = w.to(torch.bfloat16).to(torch.float32)
     return x @ w
@@ -105,19 +131,27 @@ class OffsetNet(nn.Module):
         return [h.w.shape[1] for h in self.heads]
 
     def forward(self, xyz: torch.Tensor, t: torch.Tensor,
-                compute_dtype: str = "float32") -> Tuple[torch.Tensor, ...]:
-        bf16 = compute_dtype == "bfloat16"
+                tier: str = "float32") -> Tuple[torch.Tensor, ...]:
+        """``tier``: "float32", "bfloat16" or "bfloat16_bwd" (see module)."""
+        if tier not in ("float32", "bfloat16", "bfloat16_bwd"):
+            raise ValueError(f"unknown tier {tier!r}")
         xe = posenc(xyz, self.cfg.multires_xyz)
         te = posenc(t, self.cfg.multires_time)
         h = torch.cat([xe, te], dim=-1)
         for i, layer in enumerate(self.layers):
-            h = torch.relu(layer(h, bf16))
+            h = torch.relu(layer(h, tier))
             if i in self.cfg.skips:
                 h = torch.cat([xe, h], dim=-1)
         wcat = torch.cat([hd.w for hd in self.heads], dim=1)
         bcat = torch.cat([hd.b for hd in self.heads], dim=0)
-        out = _matmul(h, wcat, bf16) + bcat
+        out = _matmul(h, wcat, tier) + bcat
         return tuple(torch.split(out, self.head_dims, dim=1))
+
+    def param_tree(self) -> Dict[str, list]:
+        """The parameters themselves in the JAX pytree layout
+        ``{"layers": [{"w", "b"}...], "heads": [...]}``."""
+        return {"layers": [{"w": m.w, "b": m.b} for m in self.layers],
+                "heads": [{"w": m.w, "b": m.b} for m in self.heads]}
 
     def numpy_params(self) -> Dict[str, list]:
         """Weights back in the JAX pytree layout (numpy)."""
@@ -137,5 +171,7 @@ def deform_offsets(net: OffsetNet, xyz: torch.Tensor, time, iteration: int,
         return z((n, 3)), z((n, 3)), z((n, 4)), z((n, cfg.sh_coeffs * 3))
     t = torch.as_tensor(time, dtype=torch.float32, device=xyz.device).reshape(-1, 1)
     t = t.expand(n, 1)
-    tier = "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32"
+    tier = "float32"
+    if cfg.compute_dtype == "bfloat16":
+        tier = "bfloat16_bwd" if cfg.bf16_cotangents else "bfloat16"
     return net(xyz, t, tier)

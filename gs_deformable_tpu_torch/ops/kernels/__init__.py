@@ -12,6 +12,7 @@ from . import composite, ordered_fill
 
 WRAPPERS = {
     "composite_forward": composite.composite_forward,
+    "composite_backward": composite.composite_backward,
     "ordered_prefix_fill": ordered_fill.ordered_prefix_fill,
     "ordered_place_i32": ordered_fill.ordered_place_i32,
 }

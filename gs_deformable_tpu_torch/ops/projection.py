@@ -150,39 +150,43 @@ def preprocess(means3d, cov3d, viewmatrix, projmatrix, *, width: int, height: in
     det_inv = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
     conics = torch.stack([c11 * det_inv, -c01 * det_inv, c00 * det_inv], dim=-1)
 
-    mid = 0.5 * (c00 + c11)
-    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-    lam2 = mid - torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-    if opacities is not None:
-        op = opacities[:, 0] if opacities.dim() == 2 else opacities
-        nsigma = torch.sqrt(torch.clamp(2.0 * torch.log(255.0 * op) + 0.02, min=0.0))
-        nsigma = torch.clamp(nsigma, max=3.0)
-    else:
-        nsigma = 3.0
-    sqrt_lam = torch.sqrt(torch.maximum(lam1, lam2))
-    radius_f = torch.ceil(nsigma * sqrt_lam)
-
     pix = torch.stack([ndc2pix(ndc[:, 0], width), ndc2pix(ndc[:, 1], height)], dim=-1)
 
-    def clip_i32(v, hi):
-        return torch.clamp(v, 0, hi).to(torch.int32)
+    # Radius and tile rect are integers with no gradient; built without
+    # autograd, as JAX's zero derivative of ceil/floor prunes this branch (a
+    # recorded sqrt(0) or log(0) here would turn its zero cotangent into NaN).
+    with torch.no_grad():
+        mid = 0.5 * (c00 + c11)
+        lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+        lam2 = mid - torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+        if opacities is not None:
+            op = opacities[:, 0] if opacities.dim() == 2 else opacities
+            nsigma = torch.sqrt(torch.clamp(2.0 * torch.log(255.0 * op) + 0.02, min=0.0))
+            nsigma = torch.clamp(nsigma, max=3.0)
+        else:
+            nsigma = 3.0
+        sqrt_lam = torch.sqrt(torch.maximum(lam1, lam2))
+        radius_f = torch.ceil(nsigma * sqrt_lam)
 
-    x0 = clip_i32(torch.floor((pix[:, 0] - radius_f) / tile_x), grid_x)
-    y0 = clip_i32(torch.floor((pix[:, 1] - radius_f) / tile_y), grid_y)
-    if opacities is not None:
-        # floor((p + r)/TILE) + 1 is the exclusive bound for a float centre;
-        # intersecting with the reference 3-sigma rect keeps its coverage.
-        r3 = torch.ceil(3.0 * sqrt_lam)
-        x1 = torch.minimum(torch.floor((pix[:, 0] + radius_f) / tile_x) + 1,
-                           torch.floor((pix[:, 0] + r3 + tile_x - 1) / tile_x))
-        y1 = torch.minimum(torch.floor((pix[:, 1] + radius_f) / tile_y) + 1,
-                           torch.floor((pix[:, 1] + r3 + tile_y - 1) / tile_y))
-    else:
-        x1 = torch.floor((pix[:, 0] + radius_f + tile_x - 1) / tile_x)
-        y1 = torch.floor((pix[:, 1] + radius_f + tile_y - 1) / tile_y)
-    x1 = clip_i32(x1, grid_x)
-    y1 = clip_i32(y1, grid_y)
-    ntiles = (x1 - x0) * (y1 - y0)
+        def clip_i32(v, hi):
+            return torch.clamp(v, 0, hi).to(torch.int32)
+
+        x0 = clip_i32(torch.floor((pix[:, 0] - radius_f) / tile_x), grid_x)
+        y0 = clip_i32(torch.floor((pix[:, 1] - radius_f) / tile_y), grid_y)
+        if opacities is not None:
+            # floor((p + r)/TILE) + 1 is the exclusive bound for a float centre;
+            # intersecting with the reference 3-sigma rect keeps its coverage.
+            r3 = torch.ceil(3.0 * sqrt_lam)
+            x1 = torch.minimum(torch.floor((pix[:, 0] + radius_f) / tile_x) + 1,
+                               torch.floor((pix[:, 0] + r3 + tile_x - 1) / tile_x))
+            y1 = torch.minimum(torch.floor((pix[:, 1] + radius_f) / tile_y) + 1,
+                               torch.floor((pix[:, 1] + r3 + tile_y - 1) / tile_y))
+        else:
+            x1 = torch.floor((pix[:, 0] + radius_f + tile_x - 1) / tile_x)
+            y1 = torch.floor((pix[:, 1] + radius_f + tile_y - 1) / tile_y)
+        x1 = clip_i32(x1, grid_x)
+        y1 = clip_i32(y1, grid_y)
+        ntiles = (x1 - x0) * (y1 - y0)
 
     mask = in_front & det_ok & (ntiles > 0)
     if alive is not None:

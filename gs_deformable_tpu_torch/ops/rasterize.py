@@ -1,8 +1,18 @@
-"""The tiled rasterizer: preprocess -> tile cull -> binning -> CUDA composite.
+"""The differentiable tiled rasterizer: preprocess -> tile cull -> binning ->
+CUDA composite.
 
-Port of ``gs_deformable_tpu/ops/rasterize.py`` for rendering (no autograd in
-this slice).  ``render_gaussians`` takes the NDC ``means2d_offset_ndc`` tap
-argument of the JAX version and adds it to the NDC means.
+Port of ``gs_deformable_tpu/ops/rasterize.py``.  Preprocess and SH colour
+are plain PyTorch and autograd supplies their backward; binning is integer
+bookkeeping with no gradient; the sorted-splat gather (``GatherSplatsT``)
+and the composite (``Composite``, forward and backward CUDA kernels) carry
+their own backward, so ``means2d_pix``, ``conics``, ``opacities`` and
+``colors`` get gradients as in the JAX version.  Every ``composite_mode``
+the port accepts ("mixed", "batch", "stream") runs the same two kernels:
+the JAX schedules compute the same function.
+
+Gradient tap: ``render_gaussians`` takes ``means2d_offset_ndc``, a zeros
+``(P, 2)`` tensor added to the NDC means; its gradient is dL/d(ndc mean2D),
+which densification consumes (rasterize.py:16-21 of the JAX package).
 """
 
 from __future__ import annotations
@@ -14,9 +24,9 @@ import torch
 from ..config import RasterizeConfig, check_raster
 from . import sh as sh_ops
 from .binning import bin_gaussians
-from .kernels.composite import SPLAT_WIDTH, composite_forward
+from .kernels.composite import SPLAT_WIDTH, Composite
 from .projection import PreprocessOut, ndc2pix, preprocess, tile_ellipse_mask
-from .segsum import gather_splats_t
+from .segsum import GatherSplatsT
 from .transforms import build_cov3d
 
 
@@ -33,16 +43,21 @@ class RenderOut(NamedTuple):
 
 def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
                   *, grid_x: int, grid_y: int, cfg: RasterizeConfig = RasterizeConfig()):
-    """Tile cull -> bin -> sorted-splat gather: (splats_t (16, Kp), Binning)."""
+    """Tile cull -> bin -> sorted-splat gather: (splats_t (16, Kp), Binning).
+
+    ``splats_t`` carries a gradient to the screen-space inputs (reduced per
+    gaussian by ``cfg.grad_reduce``).
+    """
     check_raster(cfg)
     if (cfg.tile_x, cfg.tile_y) != (16, 16):
         raise ValueError("the composite kernel takes 16x16 tiles")
     tt = tiles_touched
     tile_mask = None
     if cfg.tile_cull:
-        tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
-                                          tile_x=cfg.tile_x, tile_y=cfg.tile_y)
-    binning = bin_gaussians(tt, rect, depths, grid_x=grid_x, grid_y=grid_y,
+        with torch.no_grad():
+            tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
+                                              tile_x=cfg.tile_x, tile_y=cfg.tile_y)
+    binning = bin_gaussians(tt, rect, depths.detach(), grid_x=grid_x, grid_y=grid_y,
                             capacity=cfg.instance_capacity, chunk=cfg.chunk,
                             sort_mode=cfg.sort_mode, aligned_slack=cfg.aligned_slack,
                             tile_mask=tile_mask)
@@ -52,28 +67,28 @@ def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_to
         [means2d_pix, conics, op, colors,
          torch.zeros((P, SPLAT_WIDTH - 9), dtype=torch.float32, device=means2d_pix.device)],
         dim=1)
-    return gather_splats_t(splats, binning.gid), binning
+    return GatherSplatsT.apply(splats, binning.gid, cfg.grad_reduce), binning
 
 
 def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
                     *, grid_x: int, grid_y: int, cfg: RasterizeConfig = RasterizeConfig()):
     """Tile cull -> bin -> sorted-splat gather -> composite on a (grid_x, grid_y) grid.
 
-    Returns (out_tiles (T, 8, 256), required int32, total_aligned int32).
+    Differentiable.  Returns (out_tiles (T, 8, 256), required int32,
+    total_aligned int32).
     """
     splats_t, binning = prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect,
                                       tiles_touched, grid_x=grid_x, grid_y=grid_y, cfg=cfg)
-    out_tiles = composite_forward(
-        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x=grid_x,
-        chunk=cfg.chunk, alpha_max=cfg.alpha_max, alpha_min=cfg.alpha_min,
-        eps=cfg.transmittance_eps)
+    out_tiles = Composite.apply(
+        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x, cfg.chunk,
+        cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps)
     return out_tiles, binning.required, binning.total_aligned
 
 
 def rasterize_arrays(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
                      bg, *, width: int, height: int,
                      cfg: RasterizeConfig = RasterizeConfig()):
-    """Composite screen-space gaussians over ``bg``.
+    """Composite screen-space gaussians over ``bg`` (differentiable).
 
     Returns (image (3,H,W), final_t (H,W), n_contrib (H,W) int32, required,
     total_aligned).
@@ -89,7 +104,7 @@ def rasterize_arrays(means2d_pix, depths, conics, opacities, colors, rect, tiles
         5, grid_y * cfg.tile_y, grid_x * cfg.tile_x)[:, :height, :width]
     color = planes[0:3]
     final_t = planes[3]
-    n_contrib = planes[4].to(torch.int32)
+    n_contrib = planes[4].detach().to(torch.int32)
     image = color + final_t[None] * bg[:, None, None]
     return image, final_t, n_contrib, required, total_aligned
 

@@ -1,7 +1,8 @@
 """Render orchestration: deformation + activations + tiled rasterizer.
 
-Port of ``gs_deformable_tpu/renderer.py`` for rendering.  ``render`` runs
-under ``torch.no_grad()``; the differentiable path arrives with training.
+Port of ``gs_deformable_tpu/renderer.py``.  ``render`` is differentiable
+end to end (the training step takes gradients through it); eval callers
+wrap it in ``torch.no_grad()`` (``training.make_eval_render``).
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet
     """Activated per-gaussian attributes after the deformation, plus the raw dx.
 
     Dead capacity slots are routed to finite constants (means 1e6, scales
-    1e-6, identity rotation, opacity 0, zero SH and offsets), as the JAX
-    version does to keep NaNs out of the MLP gradients.
+    1e-6, identity rotation, opacity 0, zero SH and offsets) by
+    ``torch.where``, as the JAX version does: the where also gives every
+    dead slot an exactly-zero gradient, so a NaN reached on a dead slot's
+    backward path never reaches the MLP's shared weights.
     """
     xyz = state.xyz
     n = xyz.shape[0]
@@ -80,14 +83,13 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet
     return means3d, scales, rotations, opacity, shs, dx
 
 
-@torch.no_grad()
 def render(state: GaussianState, net: Optional[deform_mod.OffsetNet], camera: CameraArrays,
            *, iteration: int, bg: torch.Tensor, width: int, height: int,
            tan_fovx: float, tan_fovy: float, active_sh_degree: int, cfg: Config,
            scale_modifier: float = 1.0,
            means2d_offset_ndc: Optional[torch.Tensor] = None,
            device="cuda") -> tuple:
-    """Render one frame; returns (RenderOut, dx offsets).
+    """Render one frame; returns (RenderOut, dx offsets).  Differentiable.
 
     Every tensor must lie on ``device`` (default ``"cuda"``; a missing GPU
     raises).  Sets ``torch.backends.cuda.matmul.allow_tf32`` and

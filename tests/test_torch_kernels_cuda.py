@@ -7,7 +7,10 @@ that has only the port's dependencies:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Bars: ordered fill and binning bitwise; composite rgb rtol 1e-4 / atol
-2e-5, final_T atol 2e-6, n_contrib exact (same inputs on both sides).  A
+2e-5, final_T atol 2e-6, n_contrib exact (same inputs on both sides);
+composite backward rows rtol 5e-4 / atol 2e-5 x the row's max |g| (the
+reference's gradient bar, tests/test_rasterize.py:98), exactly 0 outside
+every tile's range, and bitwise equal from launch to launch.  A
 whole render, card vs CPU: image rtol 1e-4 / atol 2e-5 and final_T rtol
 1e-4 / atol 2e-6 (the reference's bars), except at knife-edge pixels.  The
 card's expf/sinf and matmul sums round apart from the CPU's by an ulp or
@@ -120,6 +123,54 @@ def test_binning_and_composite_kernels(cuda, opaque, chunk):
         assert float(got[:, 3].min()) < 1e-3  # pixels terminated early
 
 
+def assert_rows_close(got, ref):
+    """(16, Kp) gradient rows: per row, rtol 5e-4 / atol 2e-5 x max |ref|."""
+    for r in range(got.shape[0]):
+        scale = float(ref[r].abs().max()) + 1e-30
+        torch.testing.assert_close(got[r], ref[r], rtol=5e-4, atol=2e-5 * scale,
+                                   msg=lambda m: f"row {r}: {m}")
+
+
+def in_range_rows(binning, chunk, Kp):
+    """(Kp,) bool: rows inside some tile's [start, start + count)."""
+    start = torch.clamp(binning.tile_chunk_start.long() * chunk, max=Kp)
+    end = torch.clamp(start + binning.tile_count.long(), max=Kp)
+    edge = torch.zeros(Kp + 1, dtype=torch.int64, device=start.device)
+    edge.index_add_(0, start, torch.ones_like(start))
+    edge.index_add_(0, end, -torch.ones_like(end))
+    return torch.cumsum(edge, 0)[:Kp] > 0
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_composite_backward_kernel(cuda, opaque, chunk):
+    W, H = 160, 96
+    gx, gy = W // 16, H // 16
+    args = _screen(5 + opaque, 1500, W, H, opaque, cuda)
+    cfg = config.RasterizeConfig(instance_capacity=1 << 15, chunk=chunk)
+    splats_t, binning = prepare_tiles(*args, grid_x=gx, grid_y=gy, cfg=cfg)
+    kw = dict(grid_x=gx, chunk=chunk)
+    tables = (binning.tile_chunk_start, binning.tile_count)
+    out = comp.composite_forward(splats_t, *tables, **kw)
+    rng = np.random.default_rng(11 + opaque)
+    grad = torch.zeros_like(out)
+    upstream = rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)
+    grad[:, 0:4] = torch.from_numpy(upstream).to(cuda)
+    before = launch_counts()["composite_backward"]
+    got = comp.composite_backward(splats_t, *tables, out, grad, **kw)
+    again = comp.composite_backward(splats_t, *tables, out, grad, **kw)
+    ref = comp.composite_backward_plain(splats_t, *tables, out, grad, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["composite_backward"] == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every launch
+    assert_rows_close(got, ref)
+    assert float(got[:9].abs().max()) > 0
+    inside = in_range_rows(binning, chunk, splats_t.shape[1])
+    assert not bool(got[:, ~inside].any()) and not bool(got[9:].any())
+    if opaque:
+        assert float(out[:, 3].min()) < 1e-3  # pixels terminated early
+
+
 def test_render_card_matches_cpu(cuda):
     W, H, n, cap = 320, 176, 3000, 4096
     rng = np.random.default_rng(0)
@@ -148,13 +199,15 @@ def test_render_card_matches_cpu(cuda):
         net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device=dev)
         cam = CameraArrays.from_numpy(view, full, np.zeros(3), 0.4, device=dev)
         before = launch_counts()
-        out, _ = render(state, net, cam, iteration=5000, bg=torch.zeros(3, device=dev),
-                        width=W, height=H, tan_fovx=float(np.tan(fov / 2)),
-                        tan_fovy=float(np.tan(fovy / 2)), active_sh_degree=3, cfg=cfg,
-                        device=dev)
+        with torch.no_grad():
+            out, _ = render(state, net, cam, iteration=5000, bg=torch.zeros(3, device=dev),
+                            width=W, height=H, tan_fovx=float(np.tan(fov / 2)),
+                            tan_fovy=float(np.tan(fovy / 2)), active_sh_degree=3, cfg=cfg,
+                            device=dev)
         after = launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        want = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
+        want = {"composite_forward": 1, "composite_backward": 0, "ordered_prefix_fill": 2,
+                "ordered_place_i32": 1}
         assert launched == (want if dev.type == "cuda" else dict.fromkeys(want, 0))
         outs.append(out)
     g, c = outs

@@ -114,8 +114,9 @@ def test_render_matches_jax(time, iteration, cull):
                                         cfg, device="cpu")
     cam = renderer.CameraArrays.from_numpy(view, full, center, t, device="cpu")
     before = launch_counts()
-    out, dx = renderer.render(state, net, cam, bg=torch.from_numpy(bg), cfg=cfg,
-                              device="cpu", **kw)
+    with torch.no_grad():  # render is differentiable; this compares values only
+        out, dx = renderer.render(state, net, cam, bg=torch.from_numpy(bg), cfg=cfg,
+                                  device="cpu", **kw)
     assert launch_counts() == before  # CPU tensors never launch a kernel
     assert out.image.shape == (3, H, W) and out.n_contrib.dtype == torch.int32
     assert int(out.required_instances) <= cfg.raster.instance_capacity
@@ -176,6 +177,8 @@ def test_no_quiet_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         training.make_eval_render(cfg, **kw)
     with pytest.raises(RuntimeError, match="cuda"):
+        training.make_train_step(cfg, spatial_lr_scale=1.0, **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
         renderer.CameraArrays.from_numpy(*camera_np(0.5))
     arrays = scene_arrays(4, n=8, cap=8)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -192,14 +195,17 @@ def test_no_quiet_cpu_fallback(monkeypatch):
 
 
 def test_unported_knobs_raise():
-    for over in (dict(raster=config.RasterizeConfig(composite_mode="stream")),
-                 dict(raster=config.RasterizeConfig(composite_mode="packed")),
+    for over in (dict(raster=config.RasterizeConfig(composite_mode="packed")),
                  dict(raster=config.RasterizeConfig(sort_mode="packed")),
                  dict(model=config.ModelConfig(deform_mode="se3")),
                  dict(model=config.ModelConfig(use_opacity_mask=True))):
         with pytest.raises(NotImplementedError):
             config.check_supported(config.Config(**over))
     config.check_supported(config.Config())
+    for mode in ("mixed", "batch", "stream"):  # one function, the same two kernels
+        config.check_supported(config.Config(raster=config.RasterizeConfig(composite_mode=mode)))
+    with pytest.raises(ValueError):
+        config.check_supported(config.Config(raster=config.RasterizeConfig(grad_reduce="x")))
 
 
 def test_config_defaults_match_jax():
