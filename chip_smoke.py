@@ -44,16 +44,18 @@ Phases (any failure raises and the script exits non-zero):
    with the default learning rates at a fixed camera, time and target
    (instance capacity 524,288, worst-case slack) must not overflow and must
    end with a lower loss than they start;
-7. the composite backward kernel against its plain version on the phase-6
-   frame's binning and a seeded upstream gradient: gradient rows rtol 5e-4 /
-   atol 2e-5 x the row's max |g| (tests/test_rasterize.py:98), bitwise equal
-   over two launches, with its median time, the plain version's time and
-   its bound (no one PyTorch call computes it: library "none");
+7. the composite forward (at the phase-4 bars) and backward kernels against
+   their plain versions on the phase-6 frame's binning and a seeded upstream
+   gradient: gradient rows rtol 5e-4 / atol 2e-5 x the row's max |g|
+   (tests/test_rasterize.py:98), bitwise equal over two launches, with the
+   backward's median time, the plain version's time and its bound (no one
+   PyTorch call computes it: library "none");
 8. one train step of a reduced scene (640x360, 5k gaussians, fp32 MLP tier)
    on the card and on the CPU from the same state: loss rtol 1e-4, and the
    per-group gradients (read from adam.mu) at rtol 1e-3 / atol 5e-5 x scale
-   except at <= 0.1% knife-edge elements (a splat that blends on one device
-   and not the other changes its whole gradient row).  Then the card's
+   except at knife-edge elements (a pair that blends on one device and not
+   the other changes its gaussian's gradient row): in each group at most
+   0.1% of elements, each within GRAD_KNIFE of its leaf's scale.  Then the card's
    screen-space arrays and one seeded image-space gradient go through
    binning, composite forward/backward and the segment sum on both devices,
    held to rtol 5e-4 / atol 2e-5 x scale with no allowance.
@@ -97,10 +99,14 @@ TRAIN_STEPS = 6  # timed, after one warm-up step
 LEARN_STEPS = 10
 # Backward, per contributing pair beyond the forward's 16 per evaluated
 # pair: T update 2, weight 1, colour dot 5, prefix 2, dalpha 5, gg 2, the
-# nine gradient terms 20.  Per instance with a nonzero row, one 256-wide
-# sum of 9 values: 9 x 255 adds.
+# nine gradient terms 20.
 OPS_PER_CONTRIBUTING_PAIR_BWD = 37
-OPS_PER_REDUCED_INSTANCE = 9 * 255
+GRAD_FIELDS = 9  # gradient rows the backward writes: x, y, conic a/b/c, opacity, rgb
+# Reduced step card vs CPU: a pair that blends on one device and not the
+# other has alpha within an ulp of 1/255, and every term of its gradient
+# but d_opacity carries that alpha, so one flip moves an element by a few
+# 1/255 of its leaf's max |g| (up to 0.0128 seen on an H100).
+GRAD_KNIFE = 0.025
 
 
 def log(*a):
@@ -582,6 +588,10 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg):
     torch.cuda.synchronize()
     if not torch.equal(out[:, 4], fwd_out[:, 4]):
         raise AssertionError("train frame: composite n_contrib differs from its plain version")
+    torch.testing.assert_close(out[:, 0:3], fwd_out[:, 0:3], rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(out[:, 3], fwd_out[:, 3], rtol=0, atol=2e-6)
+    fwd_rgb_err = float((out[:, 0:3] - fwd_out[:, 0:3]).abs().max())
+    fwd_t_err = float((out[:, 3] - fwd_out[:, 3]).abs().max())
     rng = np.random.default_rng(7)
     grad = torch.zeros_like(out)
     grad[:, 0:4] = torch.from_numpy(
@@ -600,27 +610,37 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg):
     rel = max(float((got[r] - ref[r]).abs().max() / (ref[r].abs().max() + 1e-30))
               for r in range(9))
     T, Kp = out.shape[0], splats_t.shape[1]
+    inst = int(binning.tile_count.sum())
     walked = int(out[:, 4].sum())  # pairs before each pixel's n_contrib
-    reduced = int(ref[:9].ne(0).any(0).sum())  # instances with a nonzero row
+    reduced = int(ref[:GRAD_FIELDS].ne(0).any(0).sum())  # instances with a nonzero row
+    # Each nonzero row sums its instance's contributing pixels (one tile's):
+    # GRAD_FIELDS adds per contributing pair beyond the first.
     ops = (walked * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR_BWD
-           + reduced * OPS_PER_REDUCED_INSTANCE)
-    b_bytes = bytes_ms(2 * 16 * Kp * 4 + T * 16 * 256 * 4)
-    b_ops = ops / FP32_OPS_PER_S * 1e3
+           + GRAD_FIELDS * (work.contributing - reduced))
+    # The used fields of each instance read, the (16, Kp) rows written, and
+    # 9 meta rows per pixel read: forward rows 0-4, upstream rows 0-3.
+    nbytes = inst * GRAD_FIELDS * 4 + 16 * Kp * 4 + T * 9 * 256 * 4
+    b_bytes, b_ops = bytes_ms(nbytes), ops / FP32_OPS_PER_S * 1e3
     rec = {
         "shape": "800x800 train frame", "tiles": T, "Kp": Kp,
-        "instances": int(binning.tile_count.sum()), "walked_pairs": walked,
+        "instances": inst, "walked_pairs": walked,
         "contributing_pairs": work.contributing, "reduced_instances": reduced,
+        "bound_bytes": nbytes, "bound_ops": ops, "bound_bytes_ms": b_bytes,
+        "bound_ops_ms": b_ops, "forward_rgb_max_abs_err": fwd_rgb_err,
+        "forward_final_t_max_abs_err": fwd_t_err,
         "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
         "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
     }
-    log(f"  composite_backward: T={T} Kp={Kp} instances={rec['instances']} walked pairs="
+    log(f"  composite_forward at these shapes: rgb err {fwd_rgb_err:.3g}  T err "
+        f"{fwd_t_err:.3g}  n_contrib exact")
+    log(f"  composite_backward: T={T} Kp={Kp} instances={inst} walked pairs="
         f"{walked} contributing={work.contributing} nonzero rows={reduced}  kernel "
         f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} "
-        f"({rec['bound_by']})  max err {err:.3g} ({rel:.3g} of the row's scale)  "
-        "bitwise repeatable")
+        f"({rec['bound_by']}; bytes {nbytes} -> {b_bytes:.4f}, ops {ops} -> {b_ops:.4f})  "
+        f"max err {err:.3g} ({rel:.3g} of the row's scale)  bitwise repeatable")
     return rec
 
 
@@ -648,28 +668,36 @@ def reduced_step_check(torch):
     (lg, mg), (lc, mc) = res["cuda"], res["cpu"]
     if not abs(lg - lc) <= 1e-4 * abs(lc):
         raise AssertionError(f"reduced step loss card {lg} vs CPU {lc}")
-    # A knife-edge splat changes its gaussian's whole gradient row and, through
-    # the MLP backward, moves every net gradient a little: the allowance is
-    # over all gradient elements of the step together.
-    worst, off_by_group, n_total = 0.0, {}, 0
+    # A knife-edge pair changes its gaussian's gradient row and, through the
+    # MLP backward, moves the net's gradients a little: in each group at most
+    # 0.1% of elements may leave the bar, each within GRAD_KNIFE of its
+    # leaf's scale.
+    groups = {}
     for (k, g), (_, c) in zip(mg, mc):
         err = (g - c).abs()
         scale = float(c.abs().max()) + 1e-30
-        off_by_group[k] = off_by_group.get(k, 0) + int((err > 1e-3 * c.abs() + 5e-5 * scale).sum())
-        worst = max(worst, float(err.max()) / scale)
-        n_total += err.numel()
-    off_total = sum(off_by_group.values())
-    log(f"  reduced step card vs CPU: loss {lg:.7f} vs {lc:.7f}; gradients: {off_total} of "
-        f"{n_total} off the bar {off_by_group} (max error {worst:.3g} of the leaf's scale)")
-    if off_total > 1e-3 * n_total:
-        raise AssertionError(f"reduced step: {off_total} of {n_total} gradients off the bar")
+        off, n, worst = groups.get(k, (0, 0, 0.0))
+        groups[k] = (off + int((err > 1e-3 * c.abs() + 5e-5 * scale).sum()), n + err.numel(),
+                     max(worst, float(err.max()) / scale))
+    log(f"  reduced step card vs CPU: loss {lg:.7f} vs {lc:.7f}; gradients off the bar, by "
+        "group (off / elements, max error over the leaf's scale): " + ", ".join(
+            f"{k} {off}/{n} {worst:.3g}" for k, (off, n, worst) in groups.items()))
+    for k, (off, n, worst) in groups.items():
+        if off > 1e-3 * n or worst > GRAD_KNIFE:
+            raise AssertionError(f"reduced step: group {k} has {off} of {n} gradients off the "
+                                 f"bar, max error {worst:.3g} of its leaf's scale")
+    off_total = sum(off for off, _, _ in groups.values())
+    n_total = sum(n for _, n, _ in groups.values())
+    worst = max(w for _, _, w in groups.values())
     same = same_input_grad_check(torch, screen, w, h, cfg)
     log(f"  same screen-space inputs, card vs CPU gradients: max error "
         f"{same['max_err_over_scale']:.3g} of the field's scale, no element off the bar")
     return {"width": w, "height": h, "gaussians": 5000, "loss_card": lg, "loss_cpu": lc,
-            "grad_elements_off_bar": off_total, "grad_elements_off_bar_by_group": off_by_group,
-            "grad_elements": n_total,
-            "grad_max_err_over_scale": worst, "same_input": same}
+            "grad_elements_off_bar": off_total, "grad_elements": n_total,
+            "grad_max_err_over_scale": worst,
+            "by_group": {k: {"off_bar": off, "elements": n, "max_err_over_scale": w}
+                         for k, (off, n, w) in groups.items()},
+            "same_input": same}
 
 
 def same_input_grad_check(torch, screen, w, h, cfg):
@@ -827,7 +855,9 @@ def main():
          "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/composite.py:272",
          "launches": train_counts["composite_forward"],
-         "launches_render": counts["composite_forward"], "max_abs_err": comp["max_abs_err"],
+         "launches_render": counts["composite_forward"],
+         "max_abs_err": max(comp["max_abs_err"], bwd["forward_rgb_max_abs_err"],
+                            bwd["forward_final_t_max_abs_err"]),
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
          "bound_by": comp["bound_by"], "library_ms": None, "calls": [comp]},
         {"name": "ordered_prefix_fill", "route": "cuda",

@@ -26,18 +26,20 @@
 //   d_a = -gg dx^2 / 2, d_b = -gg dx dy, d_c = -gg dy^2 / 2,
 // each summed over the pixels the instance contributes to.
 //
-// Each pixel recomputes T front to back with the forward's own float
-// operations in the same order (composite_common.cuh, -fmad=false), so its
-// contributing set is the forward's bit for bit and the forward's n_contrib
-// bounds its walk: instance i contributes iff i < n_contrib and it is not
-// skipped.  The reference's back-to-front division of T by (1 - alpha)
-// drifts from the forward's T and could disagree at the eps edge.
+// Each pixel recomputes T front to back with the forward's float operations
+// in the same order (the expressions of composite_fwd.cu, copied, and
+// -fmad=false), so its contributing set is the forward's and the forward's
+// n_contrib bounds its walk: instance i contributes iff i < n_contrib and it
+// is not skipped.  The reference's back-to-front division of T by
+// (1 - alpha) drifts from the forward's T and could disagree at the eps edge.
 //
-// What bounds it on the H100: operations.  Per evaluated pair ~16 fp32
-// operations and one exp (the forward's test), per contributing pair ~35
-// more, and per (instance, tile) pair one 256-wide reduction of 9 values;
-// the bytes are the splats read and the gradient rows written (2 x 16 x Kp
-// x 4) plus the (T, 16, 256) forward-out and upstream-gradient meta.
+// What bounds it on the H100: at the bench scene's 800x800 train frame the
+// bytes and the operations give about the same least time.  Operations: per
+// walked pair (before the pixel's n_contrib) ~16 fp32 operations and one exp
+// (the forward's test), per contributing pair ~37 more and 9 adds that sum
+// the row over the tile's pixels.  Bytes: the 9 used fields of each
+// instance read, the (16, Kp) rows written, and 9 of the 16 meta rows per
+// pixel read (forward rows 0-4, upstream rows 0-3).
 //
 // This first design is simple and deterministic: one 256-thread block per
 // 16x16 tile, one thread per pixel; instances stream in batches of 128
@@ -118,7 +120,7 @@ composite_backward_kernel(const float* __restrict__ splats, long long Kp,
         const float power = composite::splat_power(s_xy[j], s_con_op[j], px, py, dx, dy);
         if (!(power > 0.0f)) {
           g = expf(power);
-          alpha = fminf(alpha_max, s_con_op[j][3] * g);  // the forward's alpha, bit for bit
+          alpha = fminf(alpha_max, s_con_op[j][3] * g);  // the forward's alpha expression
           contrib = !(alpha < alpha_min);
         }
       }

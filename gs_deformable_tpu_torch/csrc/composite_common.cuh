@@ -1,9 +1,11 @@
-// Per-(instance, pixel) evaluation shared by the tile-composite forward
-// (composite_fwd.cu) and backward (composite_bwd.cu).
+// Pixel centres, the staged splat and its power, shared by the tile-composite
+// forward (composite_fwd.cu) and backward (composite_bwd.cu).
 //
-// Both kernels build with -fmad=false and evaluate every pair with the same
-// expressions, so the backward's recomputed alpha and skip test equal the
-// forward's bit for bit, and so does its transmittance chain.
+// The exp, the alpha clamp and the skip tests are not shared: each kernel
+// writes them out inline (see splat_power).  The backward's contributing set
+// equals the forward's only while those two copies stay the same expression
+// and both build with -fmad=false; the card tests and chip_smoke.py hold
+// n_contrib exact and the backward's rows to their plain version's.
 
 #pragma once
 
