@@ -58,7 +58,33 @@ Phases (any failure raises and the script exits non-zero):
    0.1% of elements, each within GRAD_KNIFE of its leaf's scale.  Then the card's
    screen-space arrays and one seeded image-space gradient go through
    binning, composite forward/backward and the segment sum on both devices,
-   held to rtol 5e-4 / atol 2e-5 x scale with no allowance.
+   held to rtol 5e-4 / atol 2e-5 x scale with no allowance;
+9. the bench's train workload as bench.py:246-255 and 321-344 run it: the
+   phase-6 scene with composite_mode "packed" (sub_chunk 32, aligned slack
+   -1, so Kp 342,144 = 262,144 + 2,500 x 32), zeroed learning rates,
+   through training.make_chunk_step with chunk_max 10: one warm-up chunk,
+   then 4 timed chunks of 10 steps.  Counters zeroed just before and read
+   just after: each chunk must launch the composite forward and backward
+   10 times, the prefix fill 20 times and the place 10 times, count no
+   overflow frame and give a finite loss and finite gradients.  Then
+   chained packed steps and chained mixed steps (phase 6's configuration)
+   timed in turns, packed first and mixed first alternately;
+10. packed against mixed and the packed kernels against their plain
+   versions: (a) the 800x800 train frame rendered packed and mixed: rgb,
+   final_T and n_contrib bitwise equal (one kernel, the same instances in
+   the same order; only row offsets differ); (b) one packed and one mixed
+   step from the same state: loss and per-group gradients (adam.mu) at
+   rtol 1e-3 / atol 5e-5 x scale with no allowance, and whether they are
+   bitwise equal; (c) one 1080p frame of the phase-3 scene packed (aligned
+   slack -1, Kp 850,944 = 589,824 + 8,160 x 32) bitwise equal to its mixed
+   frame; (d) the composite forward and backward at the packed train
+   frame's binning, where tiles open in the middle of a 128-row chunk
+   (rows 5 and 6 of PERF.md's kernel table): the phase-4 and phase-7 bars,
+   two launches bitwise equal, median times, plain times and bounds;
+   (e) sort_mode "packed": the card's 1080p screen-space arrays binned on
+   the card (kernels) and the CPU (plain versions), every Binning field
+   bitwise equal, the instances whose in-tile order differs from "exact"
+   counted, and one frame rendered through it (finite, not constant).
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
@@ -91,6 +117,9 @@ PROFILE = "--profile" in sys.argv[1:]
 
 RENDER_LAUNCHES = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
 STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1)
+PACKED_SUB = 32  # bench.py:251 takes RasterizeConfig's default sub_chunk
+CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
+TURNS, TURN_STEPS = 4, 5  # chained packed / mixed steps, in turns
 TRAIN_W = TRAIN_H = 800
 TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
 LEARN_ICAP = 512 * 1024
@@ -300,15 +329,25 @@ def frame_tiles(torch, state, net, cam, tanx, tany, cfg, width=W, height=H,
     return splats_t, binning, gx
 
 
-def check_composite(torch, timer, splats_t, binning, grid_x, cfg):
+def composite_kw(cfg):
+    from gs_deformable_tpu_torch.config import layout_unit
+
+    r = cfg.raster
+    return dict(chunk=layout_unit(r), alpha_max=r.alpha_max, alpha_min=r.alpha_min,
+                eps=r.transmittance_eps)
+
+
+def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p frame"):
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
-    kw = dict(grid_x=grid_x, chunk=cfg.raster.chunk, alpha_max=cfg.raster.alpha_max,
-              alpha_min=cfg.raster.alpha_min, eps=cfg.raster.transmittance_eps)
+    kw = dict(grid_x=grid_x, **composite_kw(cfg))
     args = (splats_t, binning.tile_chunk_start, binning.tile_count)
     got = comp.composite_forward(*args, **kw)
+    again = comp.composite_forward(*args, **kw)
     ref, work = comp.composite_forward_plain(*args, count_work=True, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("composite_forward is not bitwise repeatable")
     rgb_err = float((got[:, 0:3] - ref[:, 0:3]).abs().max())
     t_err = float((got[:, 3] - ref[:, 3]).abs().max())
     n_bad = int((got[:, 4] != ref[:, 4]).sum())
@@ -324,7 +363,8 @@ def check_composite(torch, timer, splats_t, binning, grid_x, cfg):
     ops = work.evaluated * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR
     b_bytes, b_ops = bytes_ms(nbytes), ops / FP32_OPS_PER_S * 1e3
     rec = {
-        "shape": "1080p frame", "tiles": T, "instances": inst,
+        "shape": label, "tiles": T, "Kp": splats_t.shape[1], "layout_unit": kw["chunk"],
+        "instances": inst,
         "evaluated_pairs": work.evaluated, "contributing_pairs": work.contributing,
         "ms": timer.ms(lambda: comp.composite_forward(*args, **kw), 30),
         "plain_ms": timer.ms(lambda: comp.composite_forward_plain(*args, **kw), 2, warmup=1),
@@ -334,10 +374,11 @@ def check_composite(torch, timer, splats_t, binning, grid_x, cfg):
         "max_abs_err": max(rgb_err, t_err), "rgb_max_abs_err": rgb_err,
         "final_t_max_abs_err": t_err,
     }
-    log(f"  composite_forward: T={T} instances={inst} pairs evaluated={work.evaluated} "
+    log(f"  composite_forward ({label}, layout unit {kw['chunk']}): T={T} "
+        f"Kp={splats_t.shape[1]} instances={inst} pairs evaluated={work.evaluated} "
         f"contributing={work.contributing}  kernel {rec['ms']:.4f} ms  plain "
         f"{rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  "
-        f"rgb err {rgb_err:.3g}  T err {t_err:.3g}  n_contrib exact")
+        f"rgb err {rgb_err:.3g}  T err {t_err:.3g}  n_contrib exact, bitwise repeatable")
     return rec
 
 
@@ -462,6 +503,25 @@ def zero_lr_opt(config):
         rotation_lr=0.0)
 
 
+def kp_of(cfg, width, height):
+    """Static aligned capacity of ``cfg`` at one frame size, from its layout unit."""
+    from gs_deformable_tpu_torch.config import layout_unit
+    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
+
+    r = cfg.raster
+    tiles = ((width + r.tile_x - 1) // r.tile_x) * ((height + r.tile_y - 1) // r.tile_y)
+    return aligned_capacity(r.instance_capacity, tiles, layout_unit(r), r.aligned_slack)
+
+
+def train_cfg(config, packed):
+    """The train workload: bench.py:246-255 trains "packed" with slack -1;
+    phase 6 runs the default "mixed" schedule with bench.py's chunk-128 slack."""
+    extra = (dict(composite_mode="packed", sub_chunk=PACKED_SUB, aligned_slack=-1) if packed
+             else dict(aligned_slack=TRAIN_SLACK))
+    return config.Config(raster=config.RasterizeConfig(instance_capacity=TRAIN_ICAP, chunk=128,
+                                                       **extra), opt=zero_lr_opt(config))
+
+
 def train_setup(torch, cfg, n, cap, width, height, device, seed=0):
     """(TrainState, camera, ground truth, step) for the bench scene at one size."""
     from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
@@ -484,16 +544,23 @@ def mu_leaves(ts):
     return [(k, t) for k, v in ts.adam.mu.items() for t in tree_leaves(v)]
 
 
+def check_train_outputs(torch, ts, losses, what):
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: loss not finite: {losses}")
+    for name, t in mu_leaves(ts):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}: non-finite gradient in group {name}")
+    if not any(bool(t.any()) for _, t in mu_leaves(ts)):
+        raise AssertionError(f"{what}: every gradient is zero")
+
+
 def train_phase(torch):
     """Phase 6 (a): timed steps of the 800x800 train workload, zeroed learning rates."""
     from gs_deformable_tpu_torch import config
-    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
     from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    cfg = config.Config(raster=config.RasterizeConfig(
-        instance_capacity=TRAIN_ICAP, chunk=128, aligned_slack=TRAIN_SLACK),
-        opt=zero_lr_opt(config))
-    Kp = aligned_capacity(TRAIN_ICAP, (TRAIN_W // 16) * (TRAIN_H // 16), 128, TRAIN_SLACK)
+    cfg = train_cfg(config, packed=False)
+    Kp = kp_of(cfg, TRAIN_W, TRAIN_H)
     ts, cam, gt, step, tans = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
                                           "cuda")
     bg = torch.zeros(3, device="cuda")
@@ -517,13 +584,7 @@ def train_phase(torch):
     for req, req_al in reqs:
         if req > TRAIN_ICAP or req_al > Kp:
             raise AssertionError(f"train capacity overflow: {req}/{TRAIN_ICAP}, {req_al}/{Kp}")
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"train loss not finite: {losses}")
-    for name, t in mu_leaves(ts):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite gradient in group {name}")
-    if not any(bool(t.any()) for _, t in mu_leaves(ts)):
-        raise AssertionError("every gradient is zero")
+    check_train_outputs(torch, ts, losses, "train")
     med = float(np.median(step_ms))
     log(f"  steps: {[round(x, 3) for x in step_ms]} ms; median {med:.3f} ms/step; loss "
         f"{losses[-1]:.6f}; required instances {reqs[-1][0]} / {TRAIN_ICAP}, aligned "
@@ -546,10 +607,9 @@ def train_phase(torch):
 def learning_phase(torch):
     """Phase 6 (b): default learning rates, fixed camera, time and target."""
     from gs_deformable_tpu_torch import config
-    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
 
     cfg = config.Config(raster=config.RasterizeConfig(instance_capacity=LEARN_ICAP, chunk=128))
-    Kp = aligned_capacity(LEARN_ICAP, (TRAIN_W // 16) * (TRAIN_H // 16), 128)
+    Kp = kp_of(cfg, TRAIN_W, TRAIN_H)
     ts, cam, gt, step, _ = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
                                        "cuda")
     bg = torch.zeros(3, device="cuda")
@@ -576,12 +636,12 @@ def assert_rows_close(torch, got, ref, what):
                                    msg=lambda m: f"{what} field {r}: {m}")
 
 
-def check_backward(torch, timer, splats_t, binning, grid_x, cfg):
-    """Phase 7: the backward kernel vs its plain version at the train-path shapes."""
+def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 train frame"):
+    """Phases 7 and 10 (d): the backward kernel vs its plain version at the
+    train-path shapes."""
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
-    kw = dict(grid_x=grid_x, chunk=cfg.raster.chunk, alpha_max=cfg.raster.alpha_max,
-              alpha_min=cfg.raster.alpha_min, eps=cfg.raster.transmittance_eps)
+    kw = dict(grid_x=grid_x, **composite_kw(cfg))
     tables = (splats_t, binning.tile_chunk_start, binning.tile_count)
     fwd_out, work = comp.composite_forward_plain(*tables, count_work=True, **kw)
     out = comp.composite_forward(*tables, **kw)
@@ -622,21 +682,23 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg):
     nbytes = inst * GRAD_FIELDS * 4 + 16 * Kp * 4 + T * 9 * 256 * 4
     b_bytes, b_ops = bytes_ms(nbytes), ops / FP32_OPS_PER_S * 1e3
     rec = {
-        "shape": "800x800 train frame", "tiles": T, "Kp": Kp,
+        "shape": label, "tiles": T, "Kp": Kp, "layout_unit": kw["chunk"],
         "instances": inst, "walked_pairs": walked,
         "contributing_pairs": work.contributing, "reduced_instances": reduced,
         "bound_bytes": nbytes, "bound_ops": ops, "bound_bytes_ms": b_bytes,
         "bound_ops_ms": b_ops, "forward_rgb_max_abs_err": fwd_rgb_err,
         "forward_final_t_max_abs_err": fwd_t_err,
+        "forward_ms": timer.ms(lambda: comp.composite_forward(*tables, **kw), 30),
         "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
         "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
     }
-    log(f"  composite_forward at these shapes: rgb err {fwd_rgb_err:.3g}  T err "
-        f"{fwd_t_err:.3g}  n_contrib exact")
-    log(f"  composite_backward: T={T} Kp={Kp} instances={inst} walked pairs="
+    log(f"  composite_forward at these shapes: {rec['forward_ms']:.4f} ms  rgb err "
+        f"{fwd_rgb_err:.3g}  T err {fwd_t_err:.3g}  n_contrib exact")
+    log(f"  composite_backward ({label}, layout unit {kw['chunk']}): T={T} Kp={Kp} "
+        f"instances={inst} walked pairs="
         f"{walked} contributing={work.contributing} nonzero rows={reduced}  kernel "
         f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}; bytes {nbytes} -> {b_bytes:.4f}, ops {ops} -> {b_ops:.4f})  "
@@ -729,6 +791,241 @@ def same_input_grad_check(torch, screen, w, h, cfg):
     return {"max_err_over_scale": worst}
 
 
+def render_cfg(config, **raster):
+    """Phase 3's render workload (bench.py:64, 150-161)."""
+    kw = dict(instance_capacity=INSTANCE_CAPACITY, chunk=128, aligned_slack=ALIGNED_SLACK)
+    return config.Config(raster=config.RasterizeConfig(**{**kw, **raster}))
+
+
+def stacked_cameras(torch, cam):
+    """bench.py:326-331: the camera repeated on a leading CHUNK_MAX axis, the
+    time stepped by 1e-9 so every step's input differs."""
+    from gs_deformable_tpu_torch.renderer import CameraArrays
+
+    return CameraArrays(*(torch.stack([x] * CHUNK_MAX) for x in cam[:3]),
+                        cam.time + torch.arange(CHUNK_MAX, device=cam.time.device,
+                                                dtype=torch.float32) * 1e-9)
+
+
+def chunk_phase(torch):
+    """Phase 9: the packed train workload through make_chunk_step, then chained
+    packed and mixed steps in turns."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from gs_deformable_tpu_torch.training import make_chunk_step
+
+    cfg = train_cfg(config, packed=True)
+    Kp = kp_of(cfg, TRAIN_W, TRAIN_H)
+    if Kp != TRAIN_ICAP + (TRAIN_W // 16) * (TRAIN_H // 16) * PACKED_SUB:
+        raise AssertionError(f"packed train Kp {Kp}")
+    ts, cam, gt, pstep, (tanx, tany) = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W,
+                                                   TRAIN_H, "cuda")
+    run = make_chunk_step(cfg, width=TRAIN_W, height=TRAIN_H, tan_fovx=tanx, tan_fovy=tany,
+                          active_sh_degree=3, spatial_lr_scale=1.0, chunk_max=CHUNK_MAX)
+    cams = stacked_cameras(torch, cam)
+    gts = torch.stack([gt] * CHUNK_MAX)
+    bg = torch.zeros(3, device="cuda")
+    ts, _ = run(ts, cams, gts, bg, 6001, CHUNK_MAX)  # warm-up chunk (bench.py:334)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    chunk_ms, metrics = [], []
+    t_all = time.perf_counter()
+    for k in range(CHUNKS):
+        t0 = time.perf_counter()
+        ts, m = run(ts, cams, gts, bg, 6011 + CHUNK_MAX * k, CHUNK_MAX)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    total_ms = (time.perf_counter() - t_all) * 1e3
+    counts = launch_counts()
+    want = {k: v * CHUNK_MAX * CHUNKS for k, v in STEP_LAUNCHES.items()}
+    log(f"  launches over {CHUNKS} chunks of {CHUNK_MAX} steps: {counts}")
+    if counts != want:
+        raise AssertionError(f"chunked train launch counts {counts}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    req, req_al = (max(int(m[k]) for m in metrics)
+                   for k in ("required_instances", "required_aligned"))
+    overflow = sum(int(m["overflow_frames"]) for m in metrics)
+    if overflow or req > TRAIN_ICAP or req_al > Kp:
+        raise AssertionError(f"chunked train overflow: {overflow} frames; {req}/{TRAIN_ICAP}, "
+                             f"{req_al}/{Kp}")
+    check_train_outputs(torch, ts, losses, "chunked train")
+    step_ms = total_ms / (CHUNKS * CHUNK_MAX)
+    log(f"  chunks: {[round(x, 3) for x in chunk_ms]} ms; {step_ms:.3f} ms/step over "
+        f"{CHUNKS * CHUNK_MAX} steps; loss {losses[-1]:.6f}; required instances {req} / "
+        f"{TRAIN_ICAP}, aligned {req_al} / {Kp}")
+
+    # Chained packed and mixed steps in turns (host clock varies from call to
+    # call and within one: compare the two only here, alternating).
+    mcfg = train_cfg(config, packed=False)
+    mts, _, _, mstep, _ = train_setup(torch, mcfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H, "cuda")
+    mts, _ = mstep(mts, cam, gt, bg, TRAIN_ITERATION)  # warm-up step
+    sides = {"packed": [pstep, ts, []], "mixed": [mstep, mts, []]}
+    for turn in range(TURNS):
+        for name in (("packed", "mixed") if turn % 2 == 0 else ("mixed", "packed")):
+            side = sides[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TURN_STEPS):
+                side[1], _ = side[0](side[1], cam, gt, bg, TRAIN_ITERATION + i)
+            torch.cuda.synchronize()
+            side[2].append((time.perf_counter() - t0) * 1e3 / TURN_STEPS)
+    turns = {k: v[2] for k, v in sides.items()}
+    log(f"  chained steps in turns ({TURN_STEPS} steps a turn, ms/step): "
+        + "; ".join(f"{k} {[round(x, 3) for x in v]} median {np.median(v):.3f}"
+                    for k, v in turns.items()))
+    breakdown = None
+    if PROFILE:
+        holder = [ts]
+
+        def one():
+            holder[0], _ = pstep(holder[0], cam, gt, bg, TRAIN_ITERATION)
+
+        breakdown = profile_calls(torch, one, 2, float(np.median(turns["packed"])),
+                                  "packed step")
+    rec = {"chunk_max": CHUNK_MAX, "chunks": CHUNKS, "chunk_ms": chunk_ms,
+           "chunked_ms_per_step": step_ms, "loss": losses, "required_instances": req,
+           "required_aligned": req_al, "overflow_frames": overflow, "Kp": Kp,
+           "instance_capacity": TRAIN_ICAP, "launches": counts,
+           "turns_ms_per_step": turns,
+           "turns_median": {k: float(np.median(v)) for k, v in turns.items()},
+           "breakdown": breakdown}
+    return rec
+
+
+def grads_vs(torch, got, ref):
+    """Per-group max error over the leaf's scale and elements off rtol 1e-3 /
+    atol 5e-5 x scale, of two mu_leaves lists."""
+    groups, bitwise = {}, True
+    for (k, g), (_, c) in zip(got, ref):
+        g, c = g.cpu(), c.cpu()
+        bitwise = bitwise and torch.equal(g, c)
+        err = (g - c).abs()
+        scale = float(c.abs().max()) + 1e-30
+        off, worst = groups.get(k, (0, 0.0))
+        groups[k] = (off + int((err > 1e-3 * c.abs() + 5e-5 * scale).sum()),
+                     max(worst, float(err.max()) / scale))
+    return groups, bitwise
+
+
+def packed_checks(torch, timer):
+    """Phase 10: packed against mixed, the packed kernels against their plain
+    versions, and sort_mode "packed" card vs CPU."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.ops.binning import Binning, bin_gaussians
+    from gs_deformable_tpu_torch.ops.projection import tile_ellipse_mask
+    from gs_deformable_tpu_torch.renderer import render
+    from gs_deformable_tpu_torch.training import make_eval_render
+
+    rec = {}
+
+    def frame(state, net, cam, cfg, width, height, tanx, tany, iteration):
+        with torch.no_grad():
+            out, _ = render(state, net, cam, iteration=iteration,
+                            bg=torch.zeros(3, device="cuda"), width=width, height=height,
+                            tan_fovx=tanx, tan_fovy=tany, active_sh_degree=3, cfg=cfg)
+        return out
+
+    def same_frame(a, b, what):
+        for name in ("image", "final_t", "n_contrib"):
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{what}: packed and mixed {name} differ")
+
+    # (a) + (b): the 800x800 train frame and one step, packed vs mixed.
+    pcfg, mcfg = train_cfg(config, packed=True), train_cfg(config, packed=False)
+    steps = {}
+    for name, cfg in (("packed", pcfg), ("mixed", mcfg)):
+        ts, cam, gt, step, tans = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
+                                              "cuda")
+        out = frame(ts.gaussians, ts.net, cam, cfg, TRAIN_W, TRAIN_H, *tans, TRAIN_ITERATION)
+        ts, m = step(ts, cam, gt, torch.zeros(3, device="cuda"), TRAIN_ITERATION)
+        steps[name] = (out, float(m["loss"]), mu_leaves(ts))
+        if name == "packed":
+            pstate, pcam, ptans = ts, cam, tans
+    (po, pl, pg), (mo, ml, mg) = steps["packed"], steps["mixed"]
+    same_frame(po, mo, "800x800 train frame")
+    groups, bitwise = grads_vs(torch, pg, mg)
+    if not abs(pl - ml) <= 1e-3 * abs(ml) or any(off for off, _ in groups.values()):
+        raise AssertionError(f"packed step vs mixed: loss {pl} vs {ml}; gradients off the bar "
+                             f"by group {groups}")
+    log(f"  800x800 frame packed vs mixed: rgb, final_T, n_contrib bitwise equal; one step: "
+        f"loss {pl:.7f} vs {ml:.7f}, gradients within the bar in every group (max error over "
+        f"scale {max(w for _, w in groups.values()):.3g}), bitwise equal: {bitwise and pl == ml}")
+    rec["train_frame_bitwise"] = True
+    rec["step"] = {"loss_packed": pl, "loss_mixed": ml, "bitwise": bitwise and pl == ml,
+                   "max_err_over_scale": {k: w for k, (_, w) in groups.items()}}
+
+    # (d) rows 5 and 6: the kernels at the packed train frame's binning.
+    splats_t, binning, gx = frame_tiles(torch, pstate.gaussians, pstate.net, pcam, *ptans, pcfg,
+                                        TRAIN_W, TRAIN_H, TRAIN_ITERATION)
+    starts = binning.tile_chunk_start.long() * PACKED_SUB
+    mid = int(((starts % 128 != 0) & (binning.tile_count > 0)).sum())
+    if not mid:
+        raise AssertionError("no tile of the packed frame opens mid-chunk")
+    log(f"  packed train frame: {mid} of {binning.tile_count.shape[0]} tiles open in the "
+        f"middle of a 128-row chunk; total aligned rows {int(binning.total_aligned)} of "
+        f"Kp {splats_t.shape[1]}")
+    rec["tiles_mid_chunk"] = mid
+    rec["total_aligned"] = int(binning.total_aligned)
+    fwd = check_composite(torch, timer, splats_t, binning, gx, pcfg, "800x800 packed train frame")
+    bwd = check_backward(torch, timer, splats_t, binning, gx, pcfg, "800x800 packed train frame")
+    del pstate, splats_t, binning
+
+    # (c) + (e): 1080p, phase 3's scene.
+    rcfg = render_cfg(config)
+    state = scene(torch, N_GAUSS, CAPACITY)
+    net = OffsetNet(init_offset_params(0, rcfg.deform), rcfg.deform, device="cuda")
+    cam, tanx, tany = camera(W, H, 0.1, "cuda")
+    kcfg = render_cfg(config, composite_mode="packed", sub_chunk=PACKED_SUB, aligned_slack=-1)
+    kp = kp_of(kcfg, W, H)
+    if kp != INSTANCE_CAPACITY + ((W + 15) // 16) * ((H + 15) // 16) * PACKED_SUB:
+        raise AssertionError(f"packed 1080p Kp {kp}")
+    mixed = frame(state, net, cam, rcfg, W, H, tanx, tany, ITERATION)
+    packed = frame(state, net, cam, kcfg, W, H, tanx, tany, ITERATION)
+    same_frame(packed, mixed, "1080p frame")
+    if int(packed.required_instances) > INSTANCE_CAPACITY or int(packed.required_aligned) > kp:
+        raise AssertionError("packed 1080p frame overflowed")
+    log(f"  1080p frame packed (Kp {kp}, aligned rows {int(packed.required_aligned)}) vs mixed "
+        f"(aligned rows {int(mixed.required_aligned)}): bitwise equal")
+    rec["frame_1080p"] = {"Kp_packed": kp, "aligned_packed": int(packed.required_aligned),
+                          "aligned_mixed": int(mixed.required_aligned), "bitwise": True}
+
+    screen = screen_arrays(torch, state, net, cam, tanx, tany, rcfg, W, H)
+    means, depths, conics, opac, _, rect, tt = screen
+    gxy = dict(grid_x=(W + 15) // 16, grid_y=(H + 15) // 16)
+    bins = {}
+    for dev in ("cuda", "cpu"):
+        a = [x.to(dev) for x in (means, conics, opac, rect, tt, depths)]
+        mask, tt_c = tile_ellipse_mask(*a[:5], tile_x=16, tile_y=16)
+        kw = dict(capacity=INSTANCE_CAPACITY, chunk=128, aligned_slack=ALIGNED_SLACK,
+                  tile_mask=mask, **gxy)
+        bins[dev] = bin_gaussians(tt_c, a[3], a[5], sort_mode="packed", **kw)
+        if dev == "cuda":
+            exact = bin_gaussians(tt_c, a[3], a[5], sort_mode="exact", **kw)
+    for name in Binning._fields:
+        if not torch.equal(getattr(bins["cuda"], name).cpu(), getattr(bins["cpu"], name)):
+            raise AssertionError(f"sort_mode='packed' binning: {name} differs card vs CPU")
+    pb = bins["cuda"]
+    if not (torch.equal(pb.tile_count, exact.tile_count)
+            and torch.equal(pb.tile_chunk_start, exact.tile_chunk_start)):
+        raise AssertionError("packed and exact sorts put different instances in a tile")
+    reordered = int((pb.gid != exact.gid).sum())
+    img = make_eval_render(render_cfg(config, sort_mode="packed"), width=W, height=H,
+                           tan_fovx=tanx, tan_fovy=tany, active_sh_degree=3)(
+        state, net, cam, torch.zeros(3, device="cuda"), ITERATION)
+    if img.shape != (3, H, W) or not bool(torch.isfinite(img).all()) or float(img.std()) < 1e-3:
+        raise AssertionError("sort_mode='packed' frame not finite, wrong shape or constant")
+    log(f"  sort_mode='packed' at 1080p: every Binning field bitwise equal card vs CPU; "
+        f"{reordered} of {int(pb.num_instances)} instances in another in-tile order than "
+        f"'exact' (truncated-depth ties); its frame is finite and not constant, max abs "
+        f"difference to the exact-sort frame {float((img - mixed.image).abs().max()):.3g}")
+    rec["packed_sort"] = {"bitwise_card_vs_cpu": True, "instances": int(pb.num_instances),
+                          "reordered_vs_exact": reordered,
+                          "frame_max_abs_diff_vs_exact": float((img - mixed.image).abs().max())}
+    return rec, fwd, bwd
+
+
 def main():
     import torch
 
@@ -738,7 +1035,6 @@ def main():
         return 1
     from gs_deformable_tpu_torch import _build, config
     from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
-    from gs_deformable_tpu_torch.ops.binning import aligned_capacity
     from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from gs_deformable_tpu_torch.training import make_eval_render
 
@@ -760,12 +1056,10 @@ def main():
                 log(f"  [{name}] {line.strip()}")
 
     log("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
-    cfg = config.Config(raster=config.RasterizeConfig(
-        instance_capacity=INSTANCE_CAPACITY, chunk=128, aligned_slack=ALIGNED_SLACK))
+    cfg = render_cfg(config)
     state = scene(torch, N_GAUSS, CAPACITY)
     net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
-    Kp = aligned_capacity(INSTANCE_CAPACITY, ((W + 15) // 16) * ((H + 15) // 16), 128,
-                          ALIGNED_SLACK)
+    Kp = kp_of(cfg, W, H)
     cam, tanx, tany = camera(W, H, 0.5, "cuda")
     run = make_eval_render(cfg, width=W, height=H, tan_fovx=tanx, tan_fovy=tany,
                            active_sh_degree=3)
@@ -845,10 +1139,20 @@ def main():
     log("phase 8: reduced train step, card vs CPU")
     reduced_step = reduced_step_check(torch)
 
+    log(f"phase 9: the bench's train workload: packed (sub_chunk {PACKED_SUB}, slack -1), "
+        f"make_chunk_step, {CHUNKS} chunks of {CHUNK_MAX} steps")
+    chunked = chunk_phase(torch)
+    chunk_counts = chunked["launches"]
+
+    log("phase 10: packed vs mixed, rows 5 and 6 vs their plain versions, packed sort")
+    packed, pfwd, pbwd = packed_checks(torch, timer)
+
     def total(key, recs):
         return sum(r[key] for r in recs)
 
-    # "launches": this slice's main path, the train steps of phase 6 (a);
+    # "launches": the path each kernel entry belongs to: the train steps of
+    # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
+    # of phase 9 for the packed entries; "launches_chunked": phase 9;
     # "launches_render": the render path of phase 3.
     kernels = [
         {"name": "composite_forward", "route": "cuda",
@@ -856,6 +1160,7 @@ def main():
          "replaces": "gs_deformable_tpu/ops/pallas/composite.py:272",
          "launches": train_counts["composite_forward"],
          "launches_render": counts["composite_forward"],
+         "launches_chunked": chunk_counts["composite_forward"],
          "max_abs_err": max(comp["max_abs_err"], bwd["forward_rgb_max_abs_err"],
                             bwd["forward_final_t_max_abs_err"]),
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
@@ -864,7 +1169,8 @@ def main():
          "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
          "launches": train_counts["ordered_prefix_fill"],
-         "launches_render": counts["ordered_prefix_fill"], "max_abs_err": 0.0,
+         "launches_render": counts["ordered_prefix_fill"],
+         "launches_chunked": chunk_counts["ordered_prefix_fill"], "max_abs_err": 0.0,
          "ms": total("ms", [front, relay]), "plain_ms": total("plain_ms", [front, relay]),
          "bound_ms": total("bound_ms", [front, relay]), "bound_by": "bytes",
          "library_ms": total("library_ms", [front, relay]),
@@ -874,7 +1180,8 @@ def main():
          "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
          "launches": train_counts["ordered_place_i32"],
-         "launches_render": counts["ordered_place_i32"], "max_abs_err": 0.0,
+         "launches_render": counts["ordered_place_i32"],
+         "launches_chunked": chunk_counts["ordered_place_i32"], "max_abs_err": 0.0,
          "ms": place["ms"], "plain_ms": place["plain_ms"], "bound_ms": place["bound_ms"],
          "bound_by": "bytes", "library_ms": place["library_ms"],
          "library_call": "scatter_", "calls": [place]},
@@ -882,9 +1189,22 @@ def main():
          "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/stream_composite.py:168",
          "launches": train_counts["composite_backward"],
-         "launches_render": counts["composite_backward"], "max_abs_err": bwd["max_abs_err"],
+         "launches_render": counts["composite_backward"],
+         "launches_chunked": chunk_counts["composite_backward"], "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": None, "calls": [bwd]},
+        {"name": "composite_forward_packed", "route": "cuda",
+         "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
+         "replaces": "gs_deformable_tpu/ops/pallas/packed_composite.py:108",
+         "launches": chunk_counts["composite_forward"], "max_abs_err": pfwd["max_abs_err"],
+         "ms": pfwd["ms"], "plain_ms": pfwd["plain_ms"], "bound_ms": pfwd["bound_ms"],
+         "bound_by": pfwd["bound_by"], "library_ms": None, "calls": [pfwd]},
+        {"name": "composite_backward_packed", "route": "cuda",
+         "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
+         "replaces": "gs_deformable_tpu/ops/pallas/packed_composite.py:269",
+         "launches": chunk_counts["composite_backward"], "max_abs_err": pbwd["max_abs_err"],
+         "ms": pbwd["ms"], "plain_ms": pbwd["plain_ms"], "bound_ms": pbwd["bound_ms"],
+         "bound_by": pbwd["bound_by"], "library_ms": None, "calls": [pbwd]},
     ]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -892,7 +1212,8 @@ def main():
         "frame_ms_median": frame_med, "required_instances": reqs[0][0],
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
         "reduced": reduced, "train": train, "learning": learning,
-        "reduced_step": reduced_step, "kernels": kernels, "breakdown": breakdown,
+        "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
+        "kernels": kernels, "breakdown": breakdown,
         "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)

@@ -5,7 +5,9 @@ reads the same in the other.
 Knobs split three ways in this port:
 
 - implemented: everything the deformable render path and the training
-  step read, ``grad_reduce`` and ``bf16_cotangents`` included;
+  step read, ``grad_reduce``, ``bf16_cotangents`` and the packed knobs
+  (``composite_mode="packed"``, ``sort_mode="packed"``, ``sub_chunk``)
+  included;
 - documented no-ops: knobs that only shaped the TPU schedule (``tile_batch``,
   ``stream_chunks``, ``scan_mode``, ``defer_fwd_reductions``, ``block_rows``,
   ``fill_mode``).  The CUDA kernels compute the same values whatever they
@@ -68,20 +70,24 @@ class RasterizeConfig:
     tile_x: int = 16
     tile_y: int = 16
     instance_capacity: int = 1 << 21
-    # Tile alignment of the instance layout.  The CUDA composite streams any
-    # chunk size; it only sets where each tile's rows start.
+    # Tile alignment of the instance layout (``sub_chunk`` under "packed",
+    # see ``layout_unit``).  The CUDA composite streams any alignment; it
+    # only sets where each tile's rows start.
     chunk: int = 128
     tile_batch: int = 8  # TPU grid batching; no-op in this port
     opacity_aware_radius: bool = True
     tile_cull: bool = True
-    # "mixed", "batch" and "stream" compute one function and all run the
-    # tile-composite forward and backward kernels; "packed" is not ported.
+    # "mixed", "batch", "stream" and "packed" compute one function and all
+    # run the tile-composite forward and backward kernels; "packed" lays
+    # each tile out at ``sub_chunk`` rows instead of ``chunk``.
     composite_mode: str = "mixed"
-    sub_chunk: int = 32
+    sub_chunk: int = 32  # must divide chunk under "packed"
     stream_chunks: int = 8  # TPU stream schedule; no-op in this port
     aligned_slack: int = -1
     # "exact", and "auto"/"radix" which give the same order by construction;
-    # "packed" (a truncated-depth key with another tie order) is not ported.
+    # "packed": one (tile, top 19 depth bits) key over the instances in
+    # gaussian-index order, so depths within ~0.1% of each other keep that
+    # order, and an overflow drops the highest indices, not the deepest.
     sort_mode: str = "auto"
     # Every value gives the same integers; the port always fills through
     # the ordered-fill kernel.
@@ -146,23 +152,25 @@ class Config:
 
 _LATER = {
     "se3": "the deformation-variants slice (SE(3) and latent nets)",
-    "schedules": "the packed-schedule slice",
 }
 
 
+def layout_unit(cfg: RasterizeConfig) -> int:
+    """Rows each tile's instance range is aligned to: ``sub_chunk`` under
+    ``composite_mode="packed"``, else ``chunk`` (rasterize.py:97-99 of the
+    JAX package).  Every aligned capacity Kp of the port comes from it."""
+    return cfg.sub_chunk if cfg.composite_mode == "packed" else cfg.chunk
+
+
 def check_raster(cfg: RasterizeConfig) -> None:
-    """Raise for rasterizer knobs this port does not implement yet."""
-    if cfg.composite_mode == "packed":
-        raise NotImplementedError(
-            f"composite_mode='packed' arrives with {_LATER['schedules']}; "
-            "use 'mixed', 'batch' or 'stream'")
-    if cfg.composite_mode not in ("mixed", "batch", "stream"):
+    """Raise for rasterizer knobs this port does not take."""
+    if cfg.composite_mode not in ("mixed", "batch", "stream", "packed"):
         raise ValueError(f"unknown composite_mode {cfg.composite_mode!r}")
-    if cfg.sort_mode == "packed":
-        raise NotImplementedError(
-            "sort_mode='packed' (truncated-depth key, other tie order) "
-            f"arrives with {_LATER['schedules']}; use 'exact'")
-    if cfg.sort_mode not in ("exact", "auto", "radix"):
+    if cfg.composite_mode == "packed" and (cfg.sub_chunk < 1 or cfg.chunk % cfg.sub_chunk):
+        # packed_composite.py:494 asserts it.
+        raise ValueError(f"composite_mode='packed' needs sub_chunk ({cfg.sub_chunk}) to "
+                         f"divide chunk ({cfg.chunk})")
+    if cfg.sort_mode not in ("exact", "auto", "radix", "packed"):
         raise ValueError(f"unknown sort_mode {cfg.sort_mode!r}")
     if cfg.fill_mode not in ("scatter", "pallas", "pallas_all"):
         raise ValueError(f"unknown fill_mode {cfg.fill_mode!r}")

@@ -4,7 +4,13 @@
 // Replaces the TPU kernel gs_deformable_tpu/ops/pallas/stream_composite.py:
 // _stream_backward_kernel (the backward half of composite_mode "mixed" and
 // "stream"), and serves the "batch" schedule's composite.py:
-// _backward_kernel too: the JAX package holds all three bit-equal.
+// _backward_kernel too: the JAX package holds all three bit-equal.  It also
+// serves packed_composite.py:_packed_backward_kernel ("packed", held to
+// "batch" at the reference's packed bars, test_rasterize.py:191-241): the
+// caller passes chunk = sub_chunk, since the packed layout aligns tiles to
+// sub_chunk rows.  The TPU kernel's segmented scan and carried open-tile
+// state handled 128-row DMA chunks that span tiles; each block here walks
+// only its own tile's [start, start + count).
 //
 // Inputs: splats (16, Kp) fp32, field-major rows [x, y, conic_a, conic_b,
 // conic_c, opacity, r, g, b, 0...]; tile t owns instances

@@ -1,7 +1,15 @@
 // Tile composite forward: front-to-back alpha blending of depth-sorted splats.
 //
 // Replaces the TPU kernel gs_deformable_tpu/ops/pallas/composite.py:
-// _forward_kernel (the forward half of composite_mode "mixed" and "batch").
+// _forward_kernel (the forward half of composite_mode "mixed" and "batch"),
+// and serves stream_composite.py:_stream_forward_kernel ("stream") and
+// packed_composite.py:_packed_forward_kernel ("packed") too: all compute
+// the same function.  The packed kernel differs only in layout: tiles are
+// aligned to sub_chunk rows, so the caller passes chunk = sub_chunk.  Its
+// segmented log-space scan, owner/inbase tables, tile-meta DMA ring and
+// flush double buffer existed because a TPU DMA chunk (128 rows) could
+// span several tiles; this kernel reads exactly [start, start + count) of
+// its own tile and never depended on alignment.
 //
 // Inputs: splats (16, Kp) fp32, field-major rows
 // [x, y, conic_a, conic_b, conic_c, opacity, r, g, b, 0...]; tile t owns

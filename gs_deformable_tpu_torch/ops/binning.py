@@ -1,13 +1,23 @@
-"""Tile binning (port of ``gs_deformable_tpu/ops/binning.py``, ``sort_mode="exact"``).
+"""Tile binning (port of ``gs_deformable_tpu/ops/binning.py``).
 
 Expands each visible gaussian into one instance per touched tile, sorts the
-instances by (tile, depth) and lays each tile's range out chunk-aligned:
-tile t owns rows ``[tile_chunk_start[t] * chunk, + tile_count[t])`` of a
-static ``Kp``-row layout whose unset slots point at gaussian 0.
+instances by (tile, depth) and lays each tile's range out aligned: tile t
+owns rows ``[tile_chunk_start[t] * chunk, + tile_count[t])`` of a static
+``Kp``-row layout whose unset slots point at gaussian 0.  ``chunk`` is the
+layout unit (``config.layout_unit``: ``sub_chunk`` under the packed
+composite schedule).
 
-The instance list has a static capacity K.  Instances are emitted in
-(depth, index) order, so when more than K are needed the DEEPEST drop
-first; ``required`` and ``total_aligned`` surface what the frame needed.
+The instance list has a static capacity K; ``required`` and
+``total_aligned`` surface what the frame needed.  Two sort modes:
+
+- ``"exact"`` (and "auto"/"radix"): instances are emitted in (depth, index)
+  order and sorted stably by tile, CUB's exact (tile, depth) order; when
+  more than K are needed the DEEPEST drop first.
+- ``"packed"``: instances are emitted in gaussian-index order and sorted
+  stably by one key, the tile above the depth's top 19 bits
+  (binning.py:544-556 of the JAX package).  Depths that agree in those
+  bits (within ~0.1%) keep emission order, and an overflow drops the
+  instances of the highest gaussian indices.
 
 The segment fills and the relayout place go through the ordered-fill CUDA
 kernel (``ops/kernels/ordered_fill.py``) in the same three places as the
@@ -128,14 +138,19 @@ def bin_gaussians(tiles_touched: torch.Tensor, rect: torch.Tensor, depths: torch
     tiles_touched (P,) int32 (0 = culled); rect (P, 4) int32 [x0, y0, x1, y1);
     depths (P,) float32; tile_mask optional (P,) int32 from
     ``projection.tile_ellipse_mask``.  ``sort_mode`` "exact", "auto" and
-    "radix" all give the exact CUB order.
+    "radix" all give the exact CUB order; "packed" the truncated-depth key
+    (see module).
     """
-    if sort_mode not in ("exact", "auto", "radix"):
-        raise NotImplementedError(f"sort_mode={sort_mode!r} is not ported")
+    if sort_mode not in ("exact", "auto", "radix", "packed"):
+        raise ValueError(f"unknown sort_mode {sort_mode!r}")
+    packed = sort_mode == "packed"
     dev = tiles_touched.device
     P = tiles_touched.shape[0]
     K = capacity
     num_tiles = grid_x * grid_y
+    if packed and num_tiles >= (1 << 13):
+        # binning.py:549 of the JAX package: the key keeps 13 bits of tile.
+        raise ValueError(f"sort_mode='packed' takes fewer than 8192 tiles, got {num_tiles}")
     Kp = aligned_capacity(K, num_tiles, chunk, aligned_slack)
 
     t = tiles_touched.to(torch.int32)
@@ -147,29 +162,35 @@ def bin_gaussians(tiles_touched: torch.Tensor, rect: torch.Tensor, depths: torch
     else:
         code = (rect[:, 0] << 20) | (rect[:, 1] << 10) | w_t
 
-    # Rank-major front end: emitting gaussians first, in (depth, index)
-    # order; two stable sorts give the JAX two-key stable sort's order.
-    by_depth = torch.sort(depths, stable=True).indices
-    inactive = (t[by_depth] <= 0).to(torch.int32)
-    perm = by_depth[torch.sort(inactive, stable=True).indices]
-    ids, t, code = ids[perm], t[perm], code[perm].to(torch.int32)
-    if tile_mask is not None:
-        tile_mask = tile_mask[perm]
+    code = code.to(torch.int32)
+    if not packed:
+        # Rank-major front end: emitting gaussians first, in (depth, index)
+        # order; two stable sorts give the JAX two-key stable sort's order.
+        by_depth = torch.sort(depths, stable=True).indices
+        inactive = (t[by_depth] <= 0).to(torch.int32)
+        perm = by_depth[torch.sort(inactive, stable=True).indices]
+        ids, t, code = ids[perm], t[perm], code[perm]
+        if tile_mask is not None:
+            tile_mask = tile_mask[perm]
 
     cum = _cumsum_i32(t)
     offsets = cum - t
     required = cum[-1] if P > 0 else torch.zeros((), dtype=torch.int32, device=dev)
 
     vals = [ids, offsets, code]
+    if packed:  # the depth's bits ride along as a fourth column
+        vals.append(depths.contiguous().view(torch.int32))
     if tile_mask is not None:
         vals.append(tile_mask)
-    fills = _prefix_fills(vals, t > 0, offsets, K)
+    # Packed emission is in index order, so the emitting rows are not a
+    # front prefix: _delta_fills compacts them first.
+    fills = (_delta_fills if packed else _prefix_fills)(vals, t > 0, offsets, K)
     safe_gid, offs, ic = fills[:3]
     pos = torch.arange(K, dtype=torch.int32, device=dev)
     valid = pos < torch.clamp(required, max=K)
     rank = pos - offs
     if tile_mask is not None:
-        imask = fills[3]
+        imask = fills[-1]
         flagged = (imask >> 16) > 0
         rank = torch.where(flagged, _kth_set_bit(imask & 0xFFFF, rank), rank)
 
@@ -186,8 +207,16 @@ def bin_gaussians(tiles_touched: torch.Tensor, rect: torch.Tensor, depths: torch
             + (ix0 + torch.remainder(rank, iw))
     tile_id = torch.where(valid, tile_id, num_tiles).to(torch.int32)
 
-    # Stable sort on the tile id of the rank-major stream = CUB's order.
-    tile_sorted, order = torch.sort(tile_id, stable=True)
+    if packed:
+        # One stable sort on [tile | depth bits 13..31]; invalid slots carry
+        # tile num_tiles and depth +inf, as binning.py:539-541 does.
+        dbits = torch.where(valid, fills[3], 0x7F800000)
+        key = (tile_id.long() << 19) | ((dbits >> 13) & 0x7FFFF).long()
+        key_sorted, order = torch.sort(key, stable=True)
+        tile_sorted = (key_sorted >> 19).to(torch.int32)
+    else:
+        # Stable sort on the tile id of the rank-major stream = CUB's order.
+        tile_sorted, order = torch.sort(tile_id, stable=True)
     gid_sorted = safe_gid[order]
     bounds = tile_bounds(tile_sorted, num_tiles)
     tile_start = bounds[:-1]

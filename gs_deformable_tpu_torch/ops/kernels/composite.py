@@ -5,15 +5,19 @@
   conic_c, opacity, r, g, b, 0...]`` and returns ``(T, 8, 256)`` rows
   ``[r, g, b, final_T, n_contrib, 0, 0, 0]`` per 16x16 tile (CUDA source
   ``csrc/composite_fwd.cu``; replaces ``ops/pallas/composite.py:
-  _forward_kernel`` and ``stream_composite.py:_stream_forward_kernel``).
+  _forward_kernel``, ``stream_composite.py:_stream_forward_kernel`` and
+  ``packed_composite.py:_packed_forward_kernel``).
 - ``composite_backward(..., fwd_out, grad_out)`` returns the ``(16, Kp)``
   per-instance gradient rows ``[dx, dy, dconic_a, dconic_b, dconic_c,
   dopacity, dr, dg, db, 0...]`` (CUDA source ``csrc/composite_bwd.cu``;
-  replaces ``stream_composite.py:_stream_backward_kernel`` and
-  ``composite.py:_backward_kernel``).
+  replaces ``stream_composite.py:_stream_backward_kernel``,
+  ``composite.py:_backward_kernel`` and
+  ``packed_composite.py:_packed_backward_kernel``).
 
 ``chunk`` only sets the layout: tile t's instances start at row
-``tile_chunk_start[t] * chunk``.
+``tile_chunk_start[t] * chunk``.  The packed schedule calls the same two
+kernels and plain versions with ``chunk = sub_chunk``, so its tiles may
+open in the middle of a 128-row chunk; nothing here depends on alignment.
 """
 
 from __future__ import annotations
@@ -153,7 +157,12 @@ def composite_forward(
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
 ) -> torch.Tensor:
-    """(16, Kp) fp32 splats, (T,) int32 tables -> (T, 8, 256) fp32."""
+    """(16, Kp) fp32 splats, (T,) int32 tables -> (T, 8, 256) fp32.
+
+    Launches ``csrc/composite_fwd.cu``, the port of ``composite.py:
+    _forward_kernel``, ``stream_composite.py:_stream_forward_kernel`` and,
+    with ``chunk = sub_chunk``, ``packed_composite.py:_packed_forward_kernel``.
+    """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min, eps=eps)
     if _check_inputs(splats_t, tile_chunk_start, tile_count):
         return composite_forward_plain(splats_t, tile_chunk_start, tile_count, **kw)
@@ -254,6 +263,9 @@ def composite_backward(
     gradient (rows 0-3 read) -> (16, Kp) per-instance gradient rows.
 
     Rows outside every tile's ``[start, start + count)`` are exactly 0.
+    Launches ``csrc/composite_bwd.cu``, the port of ``stream_composite.py:
+    _stream_backward_kernel``, ``composite.py:_backward_kernel`` and, with
+    ``chunk = sub_chunk``, ``packed_composite.py:_packed_backward_kernel``.
     """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min)
     if _check_inputs(splats_t, tile_chunk_start, tile_count,

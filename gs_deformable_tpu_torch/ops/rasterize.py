@@ -7,8 +7,15 @@ bookkeeping with no gradient; the sorted-splat gather (``GatherSplatsT``)
 and the composite (``Composite``, forward and backward CUDA kernels) carry
 their own backward, so ``means2d_pix``, ``conics``, ``opacities`` and
 ``colors`` get gradients as in the JAX version.  Every ``composite_mode``
-the port accepts ("mixed", "batch", "stream") runs the same two kernels:
-the JAX schedules compute the same function.
+("mixed", "batch", "stream", "packed") runs the same two kernels: the JAX
+schedules compute the same function.  "packed" only aligns each tile's
+instance range to ``sub_chunk`` rows instead of ``chunk``
+(``config.layout_unit``), which shrinks the layout; the kernels read
+exactly each tile's range wherever it starts.  ``stream_chunks`` and
+``scan_mode`` shape only the TPU schedules and are no-ops here: the JAX
+packed kernel forces its log-space scan (rasterize.py:151-154 of the JAX
+package), while the port keeps the sequential transmittance of the CUDA
+reference under every mode.
 
 Gradient tap: ``render_gaussians`` takes ``means2d_offset_ndc``, a zeros
 ``(P, 2)`` tensor added to the NDC means; its gradient is dL/d(ndc mean2D),
@@ -21,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import RasterizeConfig, check_raster
+from ..config import RasterizeConfig, check_raster, layout_unit
 from . import sh as sh_ops
 from .binning import bin_gaussians
 from .kernels.composite import SPLAT_WIDTH, Composite
@@ -45,6 +52,8 @@ def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_to
                   *, grid_x: int, grid_y: int, cfg: RasterizeConfig = RasterizeConfig()):
     """Tile cull -> bin -> sorted-splat gather: (splats_t (16, Kp), Binning).
 
+    The binning is aligned to ``layout_unit(cfg)`` rows, and so is Kp.
+
     ``splats_t`` carries a gradient to the screen-space inputs (reduced per
     gaussian by ``cfg.grad_reduce``).
     """
@@ -58,7 +67,7 @@ def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_to
             tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
                                               tile_x=cfg.tile_x, tile_y=cfg.tile_y)
     binning = bin_gaussians(tt, rect, depths.detach(), grid_x=grid_x, grid_y=grid_y,
-                            capacity=cfg.instance_capacity, chunk=cfg.chunk,
+                            capacity=cfg.instance_capacity, chunk=layout_unit(cfg),
                             sort_mode=cfg.sort_mode, aligned_slack=cfg.aligned_slack,
                             tile_mask=tile_mask)
     P = means2d_pix.shape[0]
@@ -80,7 +89,7 @@ def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_
     splats_t, binning = prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect,
                                       tiles_touched, grid_x=grid_x, grid_y=grid_y, cfg=cfg)
     out_tiles = Composite.apply(
-        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x, cfg.chunk,
+        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x, layout_unit(cfg),
         cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps)
     return out_tiles, binning.required, binning.total_aligned
 

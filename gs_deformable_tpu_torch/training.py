@@ -1,8 +1,9 @@
-"""Training-side entry points: the train step and the eval render.
+"""Training-side entry points: the train step, the chunked train loop and
+the eval render.
 
 Port of ``gs_deformable_tpu/training.py`` (``TrainState``,
 ``init_train_state``, ``learning_rates``, ``make_train_step``,
-``make_eval_render``).  One step runs deformation MLP -> activations ->
+``make_chunk_step``, ``make_eval_render``).  One step runs deformation MLP -> activations ->
 EWA preprocess -> SH -> tiled rasterize (CUDA composite forward) ->
 L1 + SSIM + offset-norm loss -> backward (CUDA composite backward, the
 gather's per-gaussian segment sum, autograd for the rest) ->
@@ -22,7 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from . import device as device_rules
-from .config import Config, check_supported
+from .config import Config, check_supported, layout_unit
 from .models.deform import OffsetNet
 from .models.gaussians import (
     AdamState,
@@ -33,6 +34,7 @@ from .models.gaussians import (
     tree_leaves,
     tree_map,
 )
+from .ops.binning import aligned_capacity
 from .renderer import CameraArrays, render
 from .utils.general import expon_lr, psnr
 from .utils.losses import l1_loss, ssim
@@ -168,6 +170,61 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
         return TrainState(gstate, ts.net, new_adam), metrics
 
     return step
+
+
+def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
+                    tan_fovy: float, active_sh_degree: int, spatial_lr_scale: float,
+                    chunk_max: int = 10, device="cuda"):
+    """Up to ``chunk_max`` train steps in one call (training.py:217-298 of the
+    JAX package): ``run(ts, cams, gts, bg, it0, n) -> (ts, metrics)``.
+
+    ``cams`` holds each ``CameraArrays`` field stacked on a leading
+    ``chunk_max`` axis, ``gts`` is ``(chunk_max, 3, H, W)``; step i of the
+    ``n`` (a Python int, ``0 <= n <= chunk_max``) takes camera and target i
+    at iteration ``it0 + i``.  The metrics are the JAX keys: the last step's
+    losses, ``psnr``, ``offset_norm`` and ``n_alive``; the largest
+    ``required_instances`` and ``required_aligned`` of the chunk; and
+    ``overflow_frames``, the steps that needed more instances than
+    ``instance_capacity`` or more aligned rows than Kp.  They stay 0-d
+    tensors on ``device``: nothing in the loop waits for the card.
+
+    Kp is sized from ``config.layout_unit``, the alignment the binning uses.
+    (The JAX function sizes it from ``cfg.raster.chunk`` even under
+    ``composite_mode="packed"``, whose layout is aligned to ``sub_chunk``.)
+    ``ts`` is updated in place as ``make_train_step`` does.
+    """
+    dev = device_rules.resolve(device)
+    step = make_train_step(cfg, width=width, height=height, tan_fovx=tan_fovx,
+                           tan_fovy=tan_fovy, active_sh_degree=active_sh_degree,
+                           spatial_lr_scale=spatial_lr_scale, device=dev)
+    r = cfg.raster
+    num_tiles = ((width + r.tile_x - 1) // r.tile_x) * ((height + r.tile_y - 1) // r.tile_y)
+    kp = aligned_capacity(r.instance_capacity, num_tiles, layout_unit(r), r.aligned_slack)
+    last_keys = ("loss", "ll1", "ssim", "psnr", "offset_norm", "n_alive")
+
+    def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
+            it0: int, n: int):
+        if not 0 <= n <= chunk_max:
+            raise ValueError(f"n must lie in [0, {chunk_max}], got {n}")
+        if gts.shape[0] != chunk_max or cams.time.shape[0] != chunk_max:
+            raise ValueError(f"cams and gts must be stacked on a leading axis of {chunk_max}")
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        metrics = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in last_keys[:-1]}
+        metrics.update(n_alive=zero_i, required_instances=zero_i, required_aligned=zero_i,
+                       overflow_frames=zero_i)
+        for i in range(n):
+            cam = CameraArrays(*(x[i] for x in cams))
+            ts, m = step(ts, cam, gts[i], bg, it0 + i)
+            over = (m["required_instances"] > r.instance_capacity) | (m["required_aligned"] > kp)
+            metrics.update({k: m[k] for k in last_keys})
+            metrics["required_instances"] = torch.maximum(metrics["required_instances"],
+                                                          m["required_instances"])
+            metrics["required_aligned"] = torch.maximum(metrics["required_aligned"],
+                                                        m["required_aligned"])
+            metrics["overflow_frames"] = metrics["overflow_frames"] + over.to(torch.int32)
+        return ts, metrics
+
+    return run
 
 
 def make_eval_render(cfg: Config, *, width: int, height: int, tan_fovx: float,

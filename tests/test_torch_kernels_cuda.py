@@ -6,8 +6,10 @@ that has only the port's dependencies:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Bars: ordered fill and binning bitwise; composite rgb rtol 1e-4 / atol
-2e-5, final_T atol 2e-6, n_contrib exact (same inputs on both sides);
+Bars: ordered fill and binning bitwise (both sort modes); composite rgb
+rtol 1e-4 / atol 2e-5, final_T atol 2e-6, n_contrib exact (same inputs on
+both sides), at chunk-aligned layouts and at the packed schedule's
+sub_chunk-aligned one, where tiles open in the middle of a 128-row chunk;
 composite backward rows rtol 5e-4 / atol 2e-5 x the row's max |g| (the
 reference's gradient bar, tests/test_rasterize.py:98), exactly 0 outside
 every tile's range, and bitwise equal from launch to launch.  A
@@ -100,18 +102,35 @@ def _screen(seed, n, W, H, opaque, device):
             pre.tiles_touched)
 
 
+# (chunk, sub_chunk): sub_chunk > 0 selects the packed schedule's layout.
+LAYOUTS = pytest.mark.parametrize("chunk,sub", [(8, 0), (128, 0), (128, 32)],
+                                  ids=["chunk8", "chunk128", "packed128-32"])
+
+
+def _layout_cfg(chunk, sub, **kw):
+    packed = dict(composite_mode="packed", sub_chunk=sub) if sub else {}
+    return config.RasterizeConfig(instance_capacity=1 << 15, chunk=chunk, **packed, **kw)
+
+
+def _assert_opens_mid_chunk(binning, chunk, sub):
+    if sub:
+        start = binning.tile_chunk_start.long() * sub
+        assert bool(((start % chunk != 0) & (binning.tile_count > 0)).any())
+
+
 @pytest.mark.parametrize("opaque", [False, True])
-@pytest.mark.parametrize("chunk", [8, 128])
-def test_binning_and_composite_kernels(cuda, opaque, chunk):
+@LAYOUTS
+def test_binning_and_composite_kernels(cuda, opaque, chunk, sub):
     W, H = 160, 96
     gx, gy = W // 16, H // 16
     args = _screen(3 + opaque, 1500, W, H, opaque, cuda)
-    cfg = config.RasterizeConfig(instance_capacity=1 << 15, chunk=chunk)
+    cfg = _layout_cfg(chunk, sub)
     splats_t, binning = prepare_tiles(*args, grid_x=gx, grid_y=gy, cfg=cfg)
     ref_splats, ref_bin = prepare_tiles(*(a.cpu() for a in args), grid_x=gx, grid_y=gy, cfg=cfg)
     for name in tbin.Binning._fields:
         assert torch.equal(getattr(binning, name).cpu(), getattr(ref_bin, name)), name
-    kw = dict(grid_x=gx, chunk=chunk)
+    _assert_opens_mid_chunk(binning, chunk, sub)
+    kw = dict(grid_x=gx, chunk=config.layout_unit(cfg))
     tables = (binning.tile_chunk_start, binning.tile_count)
     got = comp.composite_forward(splats_t, *tables, **kw)
     ref = comp.composite_forward_plain(splats_t, *tables, **kw)
@@ -121,6 +140,22 @@ def test_binning_and_composite_kernels(cuda, opaque, chunk):
     assert torch.equal(got[:, 4], ref[:, 4])
     if opaque:
         assert float(got[:, 3].min()) < 1e-3  # pixels terminated early
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_packed_sort_binning_kernels(cuda, cull):
+    W, H = 160, 96
+    gx, gy = W // 16, H // 16
+    args = _screen(9, 1500, W, H, False, cuda)
+    cfg = _layout_cfg(128, 32, sort_mode="packed", tile_cull=cull)
+    before = launch_counts()["ordered_prefix_fill"]
+    _, binning = prepare_tiles(*args, grid_x=gx, grid_y=gy, cfg=cfg)
+    torch.cuda.synchronize()
+    assert launch_counts()["ordered_prefix_fill"] == before + 2
+    _, ref_bin = prepare_tiles(*(a.cpu() for a in args), grid_x=gx, grid_y=gy, cfg=cfg)
+    for name in tbin.Binning._fields:
+        assert torch.equal(getattr(binning, name).cpu(), getattr(ref_bin, name)), name
+    assert int(binning.required) > 0
 
 
 def assert_rows_close(got, ref):
@@ -142,14 +177,16 @@ def in_range_rows(binning, chunk, Kp):
 
 
 @pytest.mark.parametrize("opaque", [False, True])
-@pytest.mark.parametrize("chunk", [8, 128])
-def test_composite_backward_kernel(cuda, opaque, chunk):
+@LAYOUTS
+def test_composite_backward_kernel(cuda, opaque, chunk, sub):
     W, H = 160, 96
     gx, gy = W // 16, H // 16
     args = _screen(5 + opaque, 1500, W, H, opaque, cuda)
-    cfg = config.RasterizeConfig(instance_capacity=1 << 15, chunk=chunk)
+    cfg = _layout_cfg(chunk, sub)
     splats_t, binning = prepare_tiles(*args, grid_x=gx, grid_y=gy, cfg=cfg)
-    kw = dict(grid_x=gx, chunk=chunk)
+    _assert_opens_mid_chunk(binning, chunk, sub)
+    unit = config.layout_unit(cfg)
+    kw = dict(grid_x=gx, chunk=unit)
     tables = (binning.tile_chunk_start, binning.tile_count)
     out = comp.composite_forward(splats_t, *tables, **kw)
     rng = np.random.default_rng(11 + opaque)
@@ -165,7 +202,7 @@ def test_composite_backward_kernel(cuda, opaque, chunk):
     assert torch.equal(got, again)  # no atomics: the same bits every launch
     assert_rows_close(got, ref)
     assert float(got[:9].abs().max()) > 0
-    inside = in_range_rows(binning, chunk, splats_t.shape[1])
+    inside = in_range_rows(binning, unit, splats_t.shape[1])
     assert not bool(got[:, ~inside].any()) and not bool(got[9:].any())
     if opaque:
         assert float(out[:, 3].min()) < 1e-3  # pixels terminated early

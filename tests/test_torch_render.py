@@ -195,17 +195,27 @@ def test_no_quiet_cpu_fallback(monkeypatch):
 
 
 def test_unported_knobs_raise():
-    for over in (dict(raster=config.RasterizeConfig(composite_mode="packed")),
-                 dict(raster=config.RasterizeConfig(sort_mode="packed")),
-                 dict(model=config.ModelConfig(deform_mode="se3")),
+    for over in (dict(model=config.ModelConfig(deform_mode="se3")),
                  dict(model=config.ModelConfig(use_opacity_mask=True))):
         with pytest.raises(NotImplementedError):
             config.check_supported(config.Config(**over))
     config.check_supported(config.Config())
+    # The packed knobs are ported: the same two kernels, a sub_chunk-aligned
+    # layout and the truncated-depth sort.
+    for raster in (config.RasterizeConfig(composite_mode="packed"),
+                   config.RasterizeConfig(sort_mode="packed"),
+                   config.RasterizeConfig(composite_mode="packed", sort_mode="packed",
+                                          chunk=8, sub_chunk=2)):
+        config.check_supported(config.Config(raster=raster))
     for mode in ("mixed", "batch", "stream"):  # one function, the same two kernels
         config.check_supported(config.Config(raster=config.RasterizeConfig(composite_mode=mode)))
-    with pytest.raises(ValueError):
-        config.check_supported(config.Config(raster=config.RasterizeConfig(grad_reduce="x")))
+    for raster in (config.RasterizeConfig(grad_reduce="x"),
+                   config.RasterizeConfig(composite_mode="packed", sub_chunk=48),
+                   config.RasterizeConfig(composite_mode="packed", sub_chunk=0),
+                   config.RasterizeConfig(composite_mode="x"),
+                   config.RasterizeConfig(sort_mode="x")):
+        with pytest.raises(ValueError):
+            config.check_supported(config.Config(raster=raster))
 
 
 def test_config_defaults_match_jax():
