@@ -5,7 +5,9 @@
 
 Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+   print ptxas's register and spill report and the blocks each composite
+   kernel keeps resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 3. the render path at full width: the bench.py scene recipe (seed 0, 100k
    gaussians in capacity 131,072, SH degree 3, the 8x256 offset net from a
    seeded numpy init, bf16 tier) rendered at 1920x1080 for 6 frames at
@@ -14,11 +16,16 @@ Phases (any failure raises and the script exits non-zero):
    prefix fill twice and the place once;
 4. each kernel against its plain PyTorch version on the card at the shapes
    of that path (ordered fill: bitwise; composite, on the real binning of
-   the phase-3 scene: rgb rtol 1e-4 / atol 2e-5, final_T atol 2e-6,
-   n_contrib exact), with median times from CUDA events (L2 flushed before
-   each launch), the plain version's time, the library time where one
-   PyTorch call computes the same function, and the least time the card
-   could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+   the phase-3 scene: bitwise, and the plain version bitwise the same with
+   and without the warp cull; also launched with the tiles in
+   longest-first order, bitwise the same), with median times from CUDA
+   events (L2 flushed before each launch), the plain version's time, the
+   library time where one PyTorch call computes the same function, and the
+   least time the card could take (bytes over 3.35 TB/s or fp32 operations
+   over 67 TFLOP/s; the composite's operations counted on the pairs its
+   warp cull keeps), the frame's tile-length distribution and the plain
+   version's Work (pixel and (instance, warp) pairs walked, kept by the
+   cull, contributing);
 5. a reduced scene (640x360, 5k gaussians, fp32 MLP tier) rendered on the
    card through the kernels and on the CPU through the plain versions:
    image rtol 1e-4 / atol 2e-5, final_T rtol 1e-4 / atol 2e-6, except at
@@ -44,12 +51,15 @@ Phases (any failure raises and the script exits non-zero):
    with the default learning rates at a fixed camera, time and target
    (instance capacity 524,288, worst-case slack) must not overflow and must
    end with a lower loss than they start;
-7. the composite forward (at the phase-4 bars) and backward kernels against
-   their plain versions on the phase-6 frame's binning and a seeded upstream
+7. the composite forward (bitwise) and backward kernels against their
+   plain versions on the phase-6 frame's binning and a seeded upstream
    gradient: gradient rows rtol 5e-4 / atol 2e-5 x the row's max |g|
-   (tests/test_rasterize.py:98), bitwise equal over two launches, with the
-   backward's median time, the plain version's time and its bound (no one
-   PyTorch call computes it: library "none");
+   (tests/test_rasterize.py:98), bitwise equal over two launches and in
+   longest-first tile order, the plain rows bitwise the same with and
+   without the warp cull, with the backward's median time (also longest
+   tiles first, and the time and launches of computing that order), the
+   plain version's time, its Work and its bound (no one PyTorch call
+   computes it: library "none");
 8. one train step of a reduced scene (640x360, 5k gaussians, fp32 MLP tier)
    on the card and on the CPU from the same state: loss rtol 1e-4, and the
    per-group gradients (read from adam.mu) at rtol 1e-3 / atol 5e-5 x scale
@@ -337,48 +347,126 @@ def composite_kw(cfg):
                 eps=r.transmittance_eps)
 
 
+def tile_profile(torch, splats_t, binning, kw, fwd_out):
+    """Tile-length distribution of one frame and the walk of its longest tile
+    (pairs before each pixel stopped in the forward, before its n_contrib in
+    the backward)."""
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp
+
+    counts = binning.tile_count
+    c = counts.double()
+    t = int(torch.argmax(counts))
+    only = torch.zeros_like(counts)
+    only[t] = counts[t]
+    _, w = comp.composite_forward_plain(splats_t, binning.tile_chunk_start, only,
+                                        count_work=True, **kw)
+    p50, p99 = (float(v) for v in torch.quantile(c, torch.tensor([0.5, 0.99], dtype=c.dtype,
+                                                                 device=c.device)))
+    walked = fwd_out[:, 4].long().sum(1)
+    return {"tiles": counts.shape[0], "count_max": int(counts[t]), "count_p50": p50,
+            "count_p99": p99, "count_mean": float(c.mean()), "longest_tile": t,
+            "longest_forward_walked_pairs": w.evaluated,
+            "longest_backward_walked_pairs": int(walked[t]),
+            "backward_walked_pairs_max_tile": int(walked.max()),
+            "backward_walked_pairs_mean_tile": float(walked.double().mean())}
+
+
+def log_tiles(prof):
+    log(f"  tile lengths over {prof['tiles']} tiles: max {prof['count_max']}  p99 "
+        f"{prof['count_p99']:.1f}  p50 {prof['count_p50']:.1f}  mean {prof['count_mean']:.2f};  "
+        f"longest tile walks {prof['longest_forward_walked_pairs']} pairs forward, "
+        f"{prof['longest_backward_walked_pairs']} backward (backward per tile: max "
+        f"{prof['backward_walked_pairs_max_tile']}, mean "
+        f"{prof['backward_walked_pairs_mean_tile']:.1f})")
+
+
+def log_work(what, work):
+    log(f"  {what} work: pixel pairs walked {work.evaluated}, of them in warps the cull keeps "
+        f"{work.evaluated_kept}, contributing {work.contributing};  (instance, warp) pairs "
+        f"walked {work.warps_walked}, kept {work.warps_kept}, with a contributing lane "
+        f"{work.warps_contributing}")
+
+
+def longest_first(torch, binning):
+    """Tiles by descending instance count (ties by index): a launch order."""
+    return torch.argsort(binning.tile_count, descending=True, stable=True).to(torch.int32)
+
+
+def order_cost(torch, timer, binning):
+    """Device time and kernel launches of computing ``longest_first``.
+
+    The launches are None when the profiler saw no kernel at all: a session
+    around one call of it has recorded no device event in some H100 runs,
+    which would read as 0 launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            longest_first(torch, binning)
+        torch.cuda.synchronize()
+    launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    return {"order_ms": timer.ms(lambda: longest_first(torch, binning), 30),
+            "order_launches": launches / reps or None}
+
+
 def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p frame"):
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
     kw = dict(grid_x=grid_x, **composite_kw(cfg))
     args = (splats_t, binning.tile_chunk_start, binning.tile_count)
+    order = longest_first(torch, binning)
     got = comp.composite_forward(*args, **kw)
     again = comp.composite_forward(*args, **kw)
+    ordered = comp.composite_forward(*args, tile_order=order, **kw)
     ref, work = comp.composite_forward_plain(*args, count_work=True, **kw)
+    culled = comp.composite_forward_plain(*args, warp_cull=True, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("composite_forward is not bitwise repeatable")
+    if not torch.equal(got, again) or not torch.equal(got, ordered):
+        raise AssertionError("composite_forward is not bitwise repeatable in any tile order")
+    if not torch.equal(culled, ref):
+        raise AssertionError("plain composite forward: the warp cull changed the output")
     rgb_err = float((got[:, 0:3] - ref[:, 0:3]).abs().max())
     t_err = float((got[:, 3] - ref[:, 3]).abs().max())
     n_bad = int((got[:, 4] != ref[:, 4]).sum())
-    torch.testing.assert_close(got[:, 0:3], ref[:, 0:3], rtol=1e-4, atol=2e-5)
-    torch.testing.assert_close(got[:, 3], ref[:, 3], rtol=0, atol=2e-6)
-    if n_bad:
-        raise AssertionError(f"composite n_contrib differs at {n_bad} pixels")
-    if not torch.equal(got[:, 5:], torch.zeros_like(got[:, 5:])):
-        raise AssertionError("composite rows 5..7 must be zero")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"composite_forward differs from its plain version: rgb err "
+                             f"{rgb_err}, T err {t_err}, n_contrib at {n_bad} pixels")
     T = binning.tile_count.shape[0]
     inst = int(binning.tile_count.sum())
     nbytes = inst * 9 * 4 + 2 * T * 4 + T * 8 * 256 * 4
-    ops = work.evaluated * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR
+    # The redesign evaluates only the pairs of warps the cull keeps.
+    ops = (work.evaluated_kept * OPS_PER_EVALUATED_PAIR
+           + work.contributing * OPS_PER_CONTRIBUTING_PAIR)
+    ops_all = work.evaluated * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR
     b_bytes, b_ops = bytes_ms(nbytes), ops / FP32_OPS_PER_S * 1e3
+    prof = tile_profile(torch, splats_t, binning, kw, ref)
+    blocks = comp.occupancy()["composite_forward"]
     rec = {
         "shape": label, "tiles": T, "Kp": splats_t.shape[1], "layout_unit": kw["chunk"],
-        "instances": inst,
+        "instances": inst, "work": work._asdict(), "tile_profile": prof,
+        "blocks_per_sm": blocks,
         "evaluated_pairs": work.evaluated, "contributing_pairs": work.contributing,
         "ms": timer.ms(lambda: comp.composite_forward(*args, **kw), 30),
+        "ms_longest_first": timer.ms(
+            lambda: comp.composite_forward(*args, tile_order=order, **kw), 30),
         "plain_ms": timer.ms(lambda: comp.composite_forward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "bound_ms_all_pairs": max(b_bytes, ops_all / FP32_OPS_PER_S * 1e3),
         "max_abs_err": max(rgb_err, t_err), "rgb_max_abs_err": rgb_err,
-        "final_t_max_abs_err": t_err,
+        "final_t_max_abs_err": t_err, "bitwise_equal_plain": True,
     }
     log(f"  composite_forward ({label}, layout unit {kw['chunk']}): T={T} "
-        f"Kp={splats_t.shape[1]} instances={inst} pairs evaluated={work.evaluated} "
-        f"contributing={work.contributing}  kernel {rec['ms']:.4f} ms  plain "
-        f"{rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  "
-        f"rgb err {rgb_err:.3g}  T err {t_err:.3g}  n_contrib exact, bitwise repeatable")
+        f"Kp={splats_t.shape[1]} instances={inst}  kernel {rec['ms']:.4f} ms (longest tiles "
+        f"first {rec['ms_longest_first']:.4f})  plain {rec['plain_ms']:.2f} ms  bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}, kept pairs; all pairs "
+        f"{rec['bound_ms_all_pairs']:.4f})  bitwise equal to plain (with and without the "
+        f"cull), repeatable, any tile order;  {blocks} blocks resident per SM")
+    log_work("forward", work)
+    log_tiles(prof)
     return rec
 
 
@@ -646,10 +734,8 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
     fwd_out, work = comp.composite_forward_plain(*tables, count_work=True, **kw)
     out = comp.composite_forward(*tables, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(out[:, 4], fwd_out[:, 4]):
-        raise AssertionError("train frame: composite n_contrib differs from its plain version")
-    torch.testing.assert_close(out[:, 0:3], fwd_out[:, 0:3], rtol=1e-4, atol=2e-5)
-    torch.testing.assert_close(out[:, 3], fwd_out[:, 3], rtol=0, atol=2e-6)
+    if not torch.equal(out, fwd_out):
+        raise AssertionError("train frame: composite forward differs from its plain version")
     fwd_rgb_err = float((out[:, 0:3] - fwd_out[:, 0:3]).abs().max())
     fwd_t_err = float((out[:, 3] - fwd_out[:, 3]).abs().max())
     rng = np.random.default_rng(7)
@@ -657,12 +743,17 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
     grad[:, 0:4] = torch.from_numpy(
         rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)).cuda()
     args = (*tables, out, grad)
+    order = longest_first(torch, binning)
     got = comp.composite_backward(*args, **kw)
     again = comp.composite_backward(*args, **kw)
-    ref = comp.composite_backward_plain(*args, **kw)
+    ordered = comp.composite_backward(*args, tile_order=order, **kw)
+    ref, bwork = comp.composite_backward_plain(*args, count_work=True, **kw)
+    culled = comp.composite_backward_plain(*args, warp_cull=True, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("composite_backward is not bitwise repeatable")
+    if not torch.equal(got, again) or not torch.equal(got, ordered):
+        raise AssertionError("composite_backward is not bitwise repeatable in any tile order")
+    if not torch.equal(culled, ref):
+        raise AssertionError("plain composite backward: the warp cull changed the rows")
     assert_rows_close(torch, got[:9], ref[:9], "composite_backward")
     if bool(got[9:].any()):
         raise AssertionError("composite_backward rows 9..15 must be zero")
@@ -671,38 +762,56 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
               for r in range(9))
     T, Kp = out.shape[0], splats_t.shape[1]
     inst = int(binning.tile_count.sum())
-    walked = int(out[:, 4].sum())  # pairs before each pixel's n_contrib
+    walked = int(out[:, 4].long().sum())  # pairs before each pixel's n_contrib
+    if bwork.evaluated != walked or bwork.contributing != work.contributing:
+        raise AssertionError(f"backward work {bwork} disagrees with the forward's n_contrib")
     reduced = int(ref[:GRAD_FIELDS].ne(0).any(0).sum())  # instances with a nonzero row
     # Each nonzero row sums its instance's contributing pixels (one tile's):
-    # GRAD_FIELDS adds per contributing pair beyond the first.
-    ops = (walked * OPS_PER_EVALUATED_PAIR + work.contributing * OPS_PER_CONTRIBUTING_PAIR_BWD
-           + GRAD_FIELDS * (work.contributing - reduced))
+    # GRAD_FIELDS adds per contributing pair beyond the first.  The redesign
+    # walks only the pairs of warps the cull keeps.
+    tail = (work.contributing * OPS_PER_CONTRIBUTING_PAIR_BWD
+            + GRAD_FIELDS * (work.contributing - reduced))
+    ops = bwork.evaluated_kept * OPS_PER_EVALUATED_PAIR + tail
+    ops_all = walked * OPS_PER_EVALUATED_PAIR + tail
     # The used fields of each instance read, the (16, Kp) rows written, and
     # 9 meta rows per pixel read: forward rows 0-4, upstream rows 0-3.
     nbytes = inst * GRAD_FIELDS * 4 + 16 * Kp * 4 + T * 9 * 256 * 4
     b_bytes, b_ops = bytes_ms(nbytes), ops / FP32_OPS_PER_S * 1e3
+    prof = tile_profile(torch, splats_t, binning, kw, out)
+    blocks = comp.occupancy()["composite_backward"]
     rec = {
-        "shape": label, "tiles": T, "Kp": Kp, "layout_unit": kw["chunk"],
+        "shape": label, "tiles": T, "Kp": Kp, "blocks_per_sm": blocks, "layout_unit": kw["chunk"],
         "instances": inst, "walked_pairs": walked,
         "contributing_pairs": work.contributing, "reduced_instances": reduced,
         "bound_bytes": nbytes, "bound_ops": ops, "bound_bytes_ms": b_bytes,
-        "bound_ops_ms": b_ops, "forward_rgb_max_abs_err": fwd_rgb_err,
+        "bound_ops_ms": b_ops, "bound_ms_all_pairs": max(b_bytes, ops_all / FP32_OPS_PER_S * 1e3),
+        "work": bwork._asdict(), "tile_profile": prof, "forward_rgb_max_abs_err": fwd_rgb_err,
         "forward_final_t_max_abs_err": fwd_t_err,
         "forward_ms": timer.ms(lambda: comp.composite_forward(*tables, **kw), 30),
         "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
+        "ms_longest_first": timer.ms(
+            lambda: comp.composite_backward(*args, tile_order=order, **kw), 30),
+        **order_cost(torch, timer, binning),
         "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
     }
-    log(f"  composite_forward at these shapes: {rec['forward_ms']:.4f} ms  rgb err "
-        f"{fwd_rgb_err:.3g}  T err {fwd_t_err:.3g}  n_contrib exact")
+    order_launches = f"{rec['order_launches']:g}" if rec["order_launches"] else "unmeasured"
+    log(f"  composite_forward at these shapes: {rec['forward_ms']:.4f} ms  bitwise equal to "
+        f"its plain version")
     log(f"  composite_backward ({label}, layout unit {kw['chunk']}): T={T} Kp={Kp} "
         f"instances={inst} walked pairs="
         f"{walked} contributing={work.contributing} nonzero rows={reduced}  kernel "
-        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} "
-        f"({rec['bound_by']}; bytes {nbytes} -> {b_bytes:.4f}, ops {ops} -> {b_ops:.4f})  "
-        f"max err {err:.3g} ({rel:.3g} of the row's scale)  bitwise repeatable")
+        f"{rec['ms']:.4f} ms (longest tiles first {rec['ms_longest_first']:.4f}; their order "
+        f"{rec['order_ms']:.4f} ms in {order_launches} launches)  plain "
+        f"{rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} ({rec['bound_by']}; bytes "
+        f"{nbytes} -> {b_bytes:.4f}, ops of kept pairs {ops} -> {b_ops:.4f}; all pairs "
+        f"{rec['bound_ms_all_pairs']:.4f})  max err {err:.3g} ({rel:.3g} of the row's scale)  "
+        f"bitwise repeatable in any tile order; plain rows bitwise equal with the cull;  "
+        f"{blocks} blocks resident per SM")
+    log_work("backward", bwork)
+    log_tiles(prof)
     return rec
 
 
@@ -1054,6 +1163,11 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp_kernels
+
+    occupancy = comp_kernels.occupancy()
+    log(f"  blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 "
+        f"threads a block): {occupancy}")
 
     log("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
     cfg = render_cfg(config)
@@ -1164,7 +1278,8 @@ def main():
          "max_abs_err": max(comp["max_abs_err"], bwd["forward_rgb_max_abs_err"],
                             bwd["forward_final_t_max_abs_err"]),
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
-         "bound_by": comp["bound_by"], "library_ms": None, "calls": [comp]},
+         "bound_by": comp["bound_by"], "library_ms": None,
+         "blocks_per_sm": occupancy["composite_forward"], "calls": [comp]},
         {"name": "ordered_prefix_fill", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
@@ -1192,23 +1307,26 @@ def main():
          "launches_render": counts["composite_backward"],
          "launches_chunked": chunk_counts["composite_backward"], "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-         "bound_by": bwd["bound_by"], "library_ms": None, "calls": [bwd]},
+         "bound_by": bwd["bound_by"], "library_ms": None,
+         "blocks_per_sm": occupancy["composite_backward"], "calls": [bwd]},
         {"name": "composite_forward_packed", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/packed_composite.py:108",
          "launches": chunk_counts["composite_forward"], "max_abs_err": pfwd["max_abs_err"],
          "ms": pfwd["ms"], "plain_ms": pfwd["plain_ms"], "bound_ms": pfwd["bound_ms"],
-         "bound_by": pfwd["bound_by"], "library_ms": None, "calls": [pfwd]},
+         "bound_by": pfwd["bound_by"], "library_ms": None,
+         "blocks_per_sm": occupancy["composite_forward"], "calls": [pfwd]},
         {"name": "composite_backward_packed", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/packed_composite.py:269",
          "launches": chunk_counts["composite_backward"], "max_abs_err": pbwd["max_abs_err"],
          "ms": pbwd["ms"], "plain_ms": pbwd["plain_ms"], "bound_ms": pbwd["bound_ms"],
-         "bound_by": pbwd["bound_by"], "library_ms": None, "calls": [pbwd]},
+         "bound_by": pbwd["bound_by"], "library_ms": None,
+         "blocks_per_sm": occupancy["composite_backward"], "calls": [pbwd]},
     ]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": build_s, "frames": FRAMES, "frame_ms": frame_ms,
+        "build_s": build_s, "blocks_per_sm": occupancy, "frames": FRAMES, "frame_ms": frame_ms,
         "frame_ms_median": frame_med, "required_instances": reqs[0][0],
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
         "reduced": reduced, "train": train, "learning": learning,

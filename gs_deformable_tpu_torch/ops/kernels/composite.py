@@ -23,7 +23,7 @@ open in the middle of a 128-row chunk; nothing here depends on alignment.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,23 +35,121 @@ NPIX = TILE * TILE
 OUT_ROWS = 8
 
 _P = ctypes.c_void_p
+_OCC = (ctypes.POINTER(ctypes.c_int),)
 _SIGNATURES = {
-    "composite_forward": (_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+    "composite_forward": (_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, ctypes.c_float,
                           ctypes.c_float, _P, _P),
+    "composite_forward_occupancy": _OCC,
 }
 _BWD_SIGNATURES = {
-    "composite_backward": (_P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, _P,
+    "composite_backward": (_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int, _P, _P,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                            _P, _P),
+    "composite_backward_occupancy": _OCC,
 }
+
+WARPS = NPIX // 32
+WARP_ROWS, WARP_COLS = 4, 8  # each warp of a tile's block holds a 4 x 8 pixel block
+CULL_SLACK = 0.02  # csrc/composite_common.cuh
+CULL_REL = 1e-5
+
+
+def _warp_of_pixel():
+    """(NPIX,) the warp holding each pixel of a tile (row-major pixel index)."""
+    pix = torch.arange(NPIX)
+    row, col = pix // TILE, pix % TILE
+    return (row // WARP_ROWS) * (TILE // WARP_COLS) + col // WARP_COLS
+
+
+WARP_OF_PIXEL = _warp_of_pixel()
 
 
 class Work(NamedTuple):
-    """(instance, pixel) pairs a sequential composite evaluates."""
+    """(instance, pixel) and (instance, warp) pairs a sequential composite meets.
 
-    evaluated: int  # pairs tested before each pixel stopped
+    The forward counts pairs tested before each pixel stopped; the backward
+    (whose kernel walks each pixel up to its n_contrib and each warp up to
+    its largest) counts pairs before n_contrib.  A warp pair is one instance
+    against one warp's 4 x 8 pixels.
+    """
+
+    evaluated: int  # (instance, pixel) pairs walked
     contributing: int  # pairs that blended into a pixel
+    evaluated_kept: int = 0  # walked pairs whose warp the warp cull keeps
+    warps_walked: int = 0  # (instance, warp) pairs the warp reaches
+    warps_kept: int = 0  # of those, kept by the warp cull
+    warps_contributing: int = 0  # of those, holding a contributing lane
+
+
+def warp_mask(s: torch.Tensor, px0: torch.Tensor, py0: torch.Tensor,
+              alpha_min: float) -> torch.Tensor:
+    """The warp cull of ``csrc/composite_common.cuh:warp_keeps``, all 8 warps.
+
+    ``s`` holds at least the fields [x, y, conic_a, conic_b, conic_c,
+    opacity] of N instances as rows, ``px0``/``py0`` (N,) the first pixel of
+    each one's tile.  Returns (N,) int32 masks: bit w is set when the
+    instance may contribute to a pixel of warp w, whose 4 x 8 pixel block
+    starts at row 4 (w // 2), column 8 (w % 2) of the tile: when the least
+    q = a dx^2 + 2b dx dy + c dy^2 over that block is within
+    2 ln(op / alpha_min) plus ``CULL_SLACK`` plus ``CULL_REL`` of the q
+    terms' magnitude.  Conservative: a non-finite field or a conic that is
+    not positive definite sets every bit; the one exact exclusion,
+    0 < alpha_min and op < alpha_min, sets none.
+    """
+    x, y, a, b, c, op = s[:6]
+    finite = torch.isfinite(x + y + a + b + c + op)
+    definite = (a > 0.0) & (c > 0.0) & (a * c - b * b > 0.0)
+    thr = 2.0 * torch.log(op / alpha_min) + CULL_SLACK
+    kx, ky = -b / c, -b / a
+
+    def quad(dx, dy):
+        return a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
+
+    mask = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for w in range(WARPS):
+        rx0 = px0 + float((w % 2) * WARP_COLS)
+        ry0 = py0 + float((w // 2) * WARP_ROWS)
+        ax, bx = x - (rx0 + float(WARP_COLS - 1)), x - rx0
+        ay, by = y - (ry0 + float(WARP_ROWS - 1)), y - ry0
+        inside = (ax <= 0.0) & (bx >= 0.0) & (ay <= 0.0) & (by >= 0.0)
+        edges = torch.stack([quad(ax, torch.clamp(kx * ax, ay, by)),
+                             quad(bx, torch.clamp(kx * bx, ay, by)),
+                             quad(torch.clamp(ky * ay, ax, bx), ay),
+                             quad(torch.clamp(ky * by, ax, bx), by)])
+        qmin = torch.where(inside, 0.0, edges.amin(0))
+        margin = CULL_REL * ((a + b.abs()) * torch.maximum(ax * ax, bx * bx)
+                             + (c + b.abs()) * torch.maximum(ay * ay, by * by))
+        mask = mask | ((~(qmin > thr + margin)).to(torch.int32) << w)
+    mask = torch.where(definite, mask, 0xFF)
+    if alpha_min > 0.0:
+        mask = torch.where(op < alpha_min, 0, mask)
+    return torch.where(finite, mask, 0xFF).to(torch.int32)
+
+
+def _tile_origins(num_tiles: int, grid_x: int, device):
+    t = torch.arange(num_tiles, device=device)
+    return (((t % grid_x) * TILE).to(torch.float32),
+            ((t // grid_x) * TILE).to(torch.float32))
+
+
+def _warp_keep(s, origins, alpha_min):
+    """(T, WARPS) bool: the cull's bits for each tile's instance ``s`` (9, T)."""
+    mask = warp_mask(s, *origins, alpha_min)
+    shifts = torch.arange(WARPS, device=mask.device, dtype=torch.int32)
+    return ((mask[:, None] >> shifts) & 1).bool()
+
+
+def _per_pixel(warp_bits):
+    """(T, WARPS) -> (T, NPIX): each pixel takes its warp's value."""
+    return warp_bits[:, WARP_OF_PIXEL.to(warp_bits.device)]
+
+
+def _by_warp(per_pixel):
+    """(T, NPIX) -> (T, WARPS, 32): each warp's 32 pixels."""
+    T = per_pixel.shape[0]
+    blocks = per_pixel.view(T, TILE // WARP_ROWS, WARP_ROWS, TILE // WARP_COLS, WARP_COLS)
+    return blocks.permute(0, 1, 3, 2, 4).reshape(T, WARPS, 32)
 
 
 def _pixel_coords(num_tiles: int, grid_x: int, device):
@@ -73,24 +171,27 @@ def composite_forward_plain(
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
     count_work: bool = False,
+    warp_cull: bool = False,
 ):
     """Vectorized over tiles x pixels, a Python loop over the in-tile rank.
 
     Same float operations in the same order as the kernel.  With
-    ``count_work`` also returns the ``Work`` this input needs.
+    ``count_work`` also returns the ``Work`` this input needs; with
+    ``warp_cull`` a pair whose warp the cull drops is skipped, as in the
+    kernel (the output does not change: the cull is conservative).
     """
     Kp = splats_t.shape[1]
     T = tile_count.shape[0]
     dev = splats_t.device
     px, py = _pixel_coords(T, grid_x, dev)
+    origins = _tile_origins(T, grid_x, dev)
     start = tile_chunk_start.long() * chunk
     count = tile_count.long()
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
     rgb = torch.zeros((3, T, NPIX), dtype=torch.float32, device=dev)
     ncon = torch.zeros((T, NPIX), dtype=torch.int32, device=dev)
     done = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
-    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
-    contributing = torch.zeros((), dtype=torch.int64, device=dev)
+    work = torch.zeros(len(Work._fields), dtype=torch.int64, device=dev)
     amax = torch.tensor(alpha_max, dtype=torch.float32, device=dev)
     max_count = int(count.max()) if T > 0 else 0
     for i in range(max_count):
@@ -103,12 +204,16 @@ def composite_forward_plain(
         alpha = torch.minimum(amax, op * torch.exp(power))
         live = valid & ~done
         skip = (power > 0.0) | (alpha < alpha_min) | ~live
+        if warp_cull or count_work:
+            keep_w = _warp_keep(s, origins, alpha_min)  # (T, WARPS)
+            keep = _per_pixel(keep_w)
+        if warp_cull:
+            skip = skip | ~keep
         test_t = trans * (1.0 - alpha)
         stop = ~skip & (test_t < eps)
         contrib = ~skip & ~stop
         if count_work:
-            evaluated += live.sum()
-            contributing += contrib.sum()
+            work += _count(live, contrib, keep, keep_w, _by_warp(live).any(-1))
         done = done | stop
         w = alpha * trans
         for ch in range(3):
@@ -120,11 +225,18 @@ def composite_forward_plain(
     out[:, 3] = trans
     out[:, 4] = ncon.to(torch.float32)
     if count_work:
-        return out, Work(int(evaluated), int(contributing))
+        return out, Work(*(int(v) for v in work))
     return out
 
 
-def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=()):
+def _count(walked, contrib, keep, keep_w, warp_walked):
+    """One rank's contribution to each ``Work`` field, as a tensor."""
+    return torch.stack([walked.sum(), contrib.sum(), (walked & keep).sum(), warp_walked.sum(),
+                        (warp_walked & keep_w).sum(),
+                        _by_warp(contrib).any(-1).sum()])
+
+
+def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=(), order=None):
     """Raise on what the kernels do not take; True when the inputs lie on the CPU."""
     if splats_t.dtype != torch.float32 or splats_t.dim() != 2 or splats_t.shape[0] != SPLAT_WIDTH:
         raise ValueError("splats_t must be (16, Kp) float32, got "
@@ -138,6 +250,11 @@ def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=()):
     for name, t in tile_rows:
         if t.dtype != torch.float32 or tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want} float32, got {t.dtype} {tuple(t.shape)}")
+    if order is not None:
+        if order.dtype != torch.int32 or order.shape != tile_count.shape:
+            raise ValueError(f"tile_order must be {tuple(tile_count.shape)} int32, got "
+                             f"{order.dtype} {tuple(order.shape)}")
+        tile_rows = (*tile_rows, ("tile_order", order))
     tensors = (splats_t, tile_chunk_start, tile_count, *(t for _, t in tile_rows))
     if splats_t.device.type == "cpu":
         return True
@@ -156,15 +273,18 @@ def composite_forward(
     alpha_max: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
+    tile_order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(16, Kp) fp32 splats, (T,) int32 tables -> (T, 8, 256) fp32.
 
     Launches ``csrc/composite_fwd.cu``, the port of ``composite.py:
     _forward_kernel``, ``stream_composite.py:_stream_forward_kernel`` and,
     with ``chunk = sub_chunk``, ``packed_composite.py:_packed_forward_kernel``.
+    ``tile_order``, a (T,) int32 permutation, sets the order in which the
+    kernel's blocks take the tiles; the output does not depend on it.
     """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min, eps=eps)
-    if _check_inputs(splats_t, tile_chunk_start, tile_count):
+    if _check_inputs(splats_t, tile_chunk_start, tile_count, order=tile_order):
         return composite_forward_plain(splats_t, tile_chunk_start, tile_count, **kw)
     lib = _build.load("composite_fwd", _SIGNATURES)
     splats_t = splats_t.contiguous()
@@ -175,7 +295,8 @@ def composite_forward(
     stream = torch.cuda.current_stream(splats_t.device).cuda_stream
     err = lib.composite_forward(
         splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(),
-        T, grid_x, chunk, alpha_max, alpha_min, eps, out.data_ptr(), stream)
+        _order_ptr(tile_order), T, grid_x, chunk, alpha_max, alpha_min, eps, out.data_ptr(),
+        stream)
     _build.check(err, "composite_forward")
     composite_forward.launches += 1
     return out
@@ -196,20 +317,29 @@ def composite_backward_plain(
     alpha_max: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
-) -> torch.Tensor:
+    count_work: bool = False,
+    warp_cull: bool = False,
+):
     """Vectorized over tiles x pixels, a Python loop over the in-tile rank.
 
     Recomputes the forward's walk with its float operations, termination
     at ``eps`` included (the kernel bounds its walk by ``fwd_out``'s
     n_contrib instead; the two agree when ``fwd_out`` is this input's
-    forward).  The nine sums run over the pixel axis.
+    forward).  The nine sums run over the pixel axis.  With ``count_work``
+    also returns the ``Work`` of the kernel's walk (each pixel up to its
+    n_contrib in ``fwd_out``, each warp up to its largest); ``warp_cull``
+    as in ``composite_forward_plain``.
     """
     Kp = splats_t.shape[1]
     T = tile_count.shape[0]
     dev = splats_t.device
     px, py = _pixel_coords(T, grid_x, dev)
+    origins = _tile_origins(T, grid_x, dev)
     start = tile_chunk_start.long() * chunk
     count = tile_count.long()
+    ncon = fwd_out[:, 4].long()  # (T, NPIX)
+    warp_ncon = _by_warp(ncon).amax(-1)  # (T, WARPS): each warp's walk
+    work = torch.zeros(len(Work._fields), dtype=torch.int64, device=dev)
     g_r, g_g, g_b, g_t = (grad_out[:, r] for r in range(4))
     gtotal = g_r * fwd_out[:, 0] + g_g * fwd_out[:, 1] + g_b * fwd_out[:, 2] + g_t * fwd_out[:, 3]
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
@@ -228,9 +358,16 @@ def composite_backward_plain(
         g = torch.exp(power)
         alpha = torch.minimum(amax, op * g)
         skip = (power > 0.0) | (alpha < alpha_min) | ~in_tile[:, None] | done
+        if warp_cull or count_work:
+            keep_w = _warp_keep(s, origins, alpha_min)  # (T, WARPS)
+            keep = _per_pixel(keep_w)
+        if warp_cull:
+            skip = skip | ~keep
         test_t = trans * (1.0 - alpha)
         stop = ~skip & (test_t < eps)
         contrib = ~skip & ~stop
+        if count_work:
+            work += _count(i < ncon, contrib, keep, keep_w, i < warp_ncon)
         done = done | stop
         w = alpha * trans
         gcol = g_r * c0 + g_g * c1 + g_b * c2
@@ -243,6 +380,8 @@ def composite_backward_plain(
         rows = torch.stack([torch.where(contrib, v, 0.0).sum(dim=1) for v in per_pixel])
         dsplats[:9, (start + i)[in_tile]] = rows[:, in_tile]
         trans = torch.where(contrib, test_t, trans)
+    if count_work:
+        return dsplats, Work(*(int(v) for v in work))
     return dsplats
 
 
@@ -258,6 +397,7 @@ def composite_backward(
     alpha_max: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
+    tile_order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(16, Kp) splats, tables, the forward's (T, 8, 256) out and the upstream
     gradient (rows 0-3 read) -> (16, Kp) per-instance gradient rows.
@@ -266,10 +406,11 @@ def composite_backward(
     Launches ``csrc/composite_bwd.cu``, the port of ``stream_composite.py:
     _stream_backward_kernel``, ``composite.py:_backward_kernel`` and, with
     ``chunk = sub_chunk``, ``packed_composite.py:_packed_backward_kernel``.
+    ``tile_order`` as in ``composite_forward``.
     """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min)
     if _check_inputs(splats_t, tile_chunk_start, tile_count,
-                     (("fwd_out", fwd_out), ("grad_out", grad_out))):
+                     (("fwd_out", fwd_out), ("grad_out", grad_out)), order=tile_order):
         return composite_backward_plain(splats_t, tile_chunk_start, tile_count, fwd_out,
                                         grad_out, eps=eps, **kw)
     lib = _build.load("composite_bwd", _BWD_SIGNATURES)
@@ -284,7 +425,8 @@ def composite_backward(
     dsplats = torch.zeros_like(splats_t)
     stream = torch.cuda.current_stream(splats_t.device).cuda_stream
     err = lib.composite_backward(
-        splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(), T,
+        splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(),
+        _order_ptr(tile_order), T,
         fwd_out.data_ptr(), grad_out.data_ptr(), grid_x, chunk, alpha_max, alpha_min,
         dsplats.data_ptr(), stream)
     _build.check(err, "composite_backward")
@@ -293,6 +435,23 @@ def composite_backward(
 
 
 composite_backward.launches = 0
+
+
+def _order_ptr(tile_order):
+    return None if tile_order is None else tile_order.contiguous().data_ptr()
+
+
+def occupancy() -> dict:
+    """Blocks of each composite kernel one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; builds the kernels)."""
+    res = {}
+    for name, src, sigs in (("composite_forward", "composite_fwd", _SIGNATURES),
+                            ("composite_backward", "composite_bwd", _BWD_SIGNATURES)):
+        blocks = ctypes.c_int(0)
+        fn = f"{name}_occupancy"
+        _build.check(getattr(_build.load(src, sigs), fn)(ctypes.byref(blocks)), fn)
+        res[name] = blocks.value
+    return res
 
 
 class Composite(torch.autograd.Function):

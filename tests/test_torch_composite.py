@@ -93,6 +93,9 @@ def test_composite_work_count():
     res, work = tcomp.composite_forward_plain(
         splats, torch.tensor([0], dtype=torch.int32), torch.tensor([8], dtype=torch.int32),
         grid_x=1, chunk=8, alpha_max=0.999, count_work=True)
-    # every pixel blends instance 1 (T -> 1e-3), then stops at instance 2
-    assert work == tcomp.Work(evaluated=2 * 256, contributing=256)
+    # every pixel blends instance 1 (T -> 1e-3), then stops at instance 2;
+    # each of the 8 warps walks both, the cull keeps both (a flat splat
+    # reaches every row), and each warp holds a contributing lane at the first
+    assert work == tcomp.Work(evaluated=2 * 256, contributing=256, evaluated_kept=2 * 256,
+                              warps_walked=16, warps_kept=16, warps_contributing=8)
     assert torch.equal(res[0, 4], torch.ones(256))

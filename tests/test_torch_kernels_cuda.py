@@ -259,3 +259,144 @@ def assert_close_but_knife_edges(got, ref, *, atol, knife, rtol=1e-4, max_frac=1
     off = err > atol + rtol * ref.abs()
     assert int(off.sum()) <= max_frac * off.numel(), f"{int(off.sum())} elements off the bar"
     assert float(err.max()) <= knife, f"max error {float(err.max())} beyond one knife-edge splat"
+
+
+# --- adversarial scenes for the redesigned composite kernels ----------------
+# Built directly as sorted splats (no projection), on a grid of tiles.  Also
+# the CPU scenes of tests/test_torch_composite_cull.py (the warp cull).
+
+CULL_AMIN = 1.0 / 255.0
+
+
+def _conic(rng, n, kind):
+    """(n, 3) conics [a, b, c]: inverses of R diag(s1^2, s2^2) R^T."""
+    if kind == "elongated":
+        s1, s2 = rng.uniform(4.0, 12.0, n), rng.uniform(0.3, 0.8, n)
+    elif kind == "degenerate":
+        s1, s2 = rng.uniform(2.0, 10.0, n), rng.uniform(0.02, 0.1, n)
+    elif kind == "opaque":
+        s1, s2 = rng.uniform(2.0, 6.0, n), rng.uniform(2.0, 6.0, n)
+    else:
+        s1, s2 = rng.uniform(0.5, 4.0, n), rng.uniform(0.5, 4.0, n)
+    th = rng.uniform(0.0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    i1, i2 = 1.0 / s1**2, 1.0 / s2**2
+    conic = np.stack([cs * cs * i1 + sn * sn * i2, cs * sn * (i1 - i2),
+                      sn * sn * i1 + cs * cs * i2], -1)
+    if kind == "degenerate":
+        # b^2 within an ulp or so of ac, a few indefinite and flat conics
+        k = n // 4
+        root = np.sqrt(conic[:, 0] * conic[:, 2])
+        conic[:k, 1] = root[:k] * (1 - 1e-7) * np.sign(conic[:k, 1])
+        conic[k:k + 3, 1] = root[k:k + 3] * 1.01
+        conic[k + 3, 0] = 0.0
+        conic[k + 4, 2] = -1e-3
+    return conic
+
+
+def cull_scene(seed, kind, n_max=48, chunk=4, grid=(3, 2), counts=None):
+    """(splats_t, tile_chunk_start, tile_count, grid_x) of one seeded scene.
+
+    ``kind``: "knife_opacity" (opacity within 1e-6 relative of 1/255),
+    "elongated" (long thin rotated conics crossing warp rows), "degenerate",
+    "off_tile" (centres up to 12 px outside the tile), "row_boundary"
+    (centres on pixel rows and half-way between), "clamped" (opacity >= 1,
+    so alpha sits at alpha_max), "opaque" (pixels terminate early),
+    "long_tile" (faint small splats, so pixels walk thousands), "mixed".
+    The layout unit is ``chunk``; Kp is 3 rows past the last tile's chunk,
+    so never a multiple of 4.
+    """
+    rng = np.random.default_rng(seed)
+    gx, gy = grid
+    T = gx * gy
+    counts = rng.integers(n_max // 2, n_max + 1, T) if counts is None else np.asarray(counts)
+    chunks = (counts + chunk - 1) // chunk
+    starts = np.cumsum(chunks) - chunks
+    Kp = int(chunks.sum()) * chunk + 3
+    splats = np.zeros((16, Kp), np.float32)
+    for t in range(T):
+        n = int(counts[t])
+        x0, y0 = (t % gx) * 16, (t // gx) * 16
+        lo, hi = (-12.0, 28.0) if kind in ("off_tile", "mixed", "elongated") else (-2.0, 18.0)
+        x = x0 + rng.uniform(lo, hi, n)
+        y = y0 + rng.uniform(lo, hi, n)
+        if kind in ("row_boundary", "mixed"):
+            y = y0 + rng.integers(-1, 17, n) + rng.choice([0.0, 0.5, -0.5], n)
+            x = np.where(rng.random(n) < 0.5, np.round(x), x)
+        op = rng.uniform(0.05, 0.99, n)
+        if kind in ("knife_opacity", "mixed"):
+            rel = rng.choice([-1e-6, -1e-7, 0.0, 1e-7, 1e-6, 1e-5], n)
+            op = np.where(rng.random(n) < 0.6, CULL_AMIN * (1.0 + rel), op)
+        if kind in ("clamped", "mixed"):
+            op = np.where(rng.random(n) < 0.5, rng.uniform(1.0, 3.0, n), op)
+        if kind == "opaque":
+            op = rng.uniform(0.9, 1.5, n)
+        if kind == "long_tile":
+            op = rng.uniform(0.01, 0.1, n)
+        conic = _conic(rng, n, "elongated" if kind == "mixed" and t % 2 else kind)
+        rows = np.stack([x, y, conic[:, 0], conic[:, 1], conic[:, 2], op,
+                         *rng.uniform(0, 1, (3, n))])
+        s = starts[t] * chunk
+        splats[:9, s:s + n] = rows.astype(np.float32)
+    return (torch.from_numpy(splats), torch.from_numpy(starts.astype(np.int32)),
+            torch.from_numpy(counts.astype(np.int32)), gx)
+
+
+# (kind, counts): "long_tile" is one tile of 5,000 instances, so the kernels
+# walk many batches (32 instances a batch in the backward, 256 in the forward).
+REDESIGN_CASES = [("long_tile", [5000]), ("knife_opacity", None), ("opaque", None),
+                  ("mixed", None)]
+
+
+@pytest.mark.parametrize("unit", [1, 2, 4])
+@pytest.mark.parametrize("kind,counts", REDESIGN_CASES, ids=[k for k, _ in REDESIGN_CASES])
+def test_redesigned_composite_kernels(cuda, kind, counts, unit):
+    grid = (1, 1) if counts else (3, 2)
+    splats_t, starts, cnt, gx = cull_scene(31, kind, chunk=unit, grid=grid, counts=counts)
+    assert splats_t.shape[1] % 4 != 0
+    kw = dict(grid_x=gx, chunk=unit)
+    tables = [t.to(cuda) for t in (splats_t, starts, cnt)]
+    out = comp.composite_forward(*tables, **kw)
+    ref, work = comp.composite_forward_plain(*tables, count_work=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)  # bitwise: same per-pixel operations in the same order
+    assert work.contributing > 0
+    if kind == "opaque":
+        assert float(out[:, 3].min()) < 1e-3  # pixels terminated early
+    if counts:
+        assert int(out[:, 4].max()) > 20 * 64  # the walk spans many batches
+    rng = np.random.default_rng(4)
+    grad = torch.zeros_like(out)
+    grad[:, 0:4] = torch.from_numpy(rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32))
+    got = comp.composite_backward(*tables, out, grad, **kw)
+    again = comp.composite_backward(*tables, out, grad, **kw)
+    rows = comp.composite_backward_plain(*tables, out, grad, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_rows_close(got, rows)
+    # The same instances at a 128-row layout (the "mixed" schedule's):
+    # bitwise the same forward, and the same rows at the moved positions.
+    msplats, mstarts, mcnt, _ = cull_scene(31, kind, chunk=128, grid=grid, counts=counts)
+    mtables = [t.to(cuda) for t in (msplats, mstarts, mcnt)]
+    mout = comp.composite_forward(*mtables, grid_x=gx, chunk=128)
+    mgot = comp.composite_backward(*mtables, mout, grad, grid_x=gx, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(mout, out)
+    for t in range(cnt.shape[0]):
+        a, b, n = int(starts[t]) * unit, int(mstarts[t]) * 128, int(cnt[t])
+        assert torch.equal(got[:, a:a + n], mgot[:, b:b + n])
+
+
+def test_tile_order_and_occupancy(cuda):
+    splats_t, starts, cnt, gx = cull_scene(32, "mixed", chunk=2)
+    kw = dict(grid_x=gx, chunk=2)
+    tables = [t.to(cuda) for t in (splats_t, starts, cnt)]
+    order = torch.argsort(tables[2], descending=True, stable=True).to(torch.int32)
+    out = comp.composite_forward(*tables, **kw)
+    grad = torch.ones_like(out)
+    rows = comp.composite_backward(*tables, out, grad, **kw)
+    assert torch.equal(comp.composite_forward(*tables, tile_order=order, **kw), out)
+    assert torch.equal(comp.composite_backward(*tables, out, grad, tile_order=order, **kw), rows)
+    occ = comp.occupancy()
+    assert set(occ) == {"composite_forward", "composite_backward"}
+    assert min(occ.values()) >= 1
