@@ -17,8 +17,7 @@ Phases (any failure raises and the script exits non-zero):
 4. each kernel against its plain PyTorch version on the card at the shapes
    of that path (ordered fill: bitwise; composite, on the real binning of
    the phase-3 scene: bitwise, and the plain version bitwise the same with
-   and without the warp cull; also launched with the tiles in
-   longest-first order, bitwise the same), with median times from CUDA
+   and without the warp cull), with median times from CUDA
    events (L2 flushed before each launch), the plain version's time, the
    library time where one PyTorch call computes the same function, and the
    least time the card could take (bytes over 3.35 TB/s or fp32 operations
@@ -54,11 +53,10 @@ Phases (any failure raises and the script exits non-zero):
 7. the composite forward (bitwise) and backward kernels against their
    plain versions on the phase-6 frame's binning and a seeded upstream
    gradient: gradient rows rtol 5e-4 / atol 2e-5 x the row's max |g|
-   (tests/test_rasterize.py:98), bitwise equal over two launches and in
-   longest-first tile order, the plain rows bitwise the same with and
-   without the warp cull, with the backward's median time (also longest
-   tiles first, and the time and launches of computing that order), the
-   plain version's time, its Work and its bound (no one PyTorch call
+   (tests/test_rasterize.py:98), bitwise equal over two launches, the
+   plain rows bitwise the same with and without the warp cull, with the
+   backward's median time, the plain version's time, its Work and its
+   bound (no one PyTorch call
    computes it: library "none");
 8. one train step of a reduced scene (640x360, 5k gaussians, fp32 MLP tier)
    on the card and on the CPU from the same state: loss rtol 1e-4, and the
@@ -387,44 +385,18 @@ def log_work(what, work):
         f"{work.warps_contributing}")
 
 
-def longest_first(torch, binning):
-    """Tiles by descending instance count (ties by index): a launch order."""
-    return torch.argsort(binning.tile_count, descending=True, stable=True).to(torch.int32)
-
-
-def order_cost(torch, timer, binning):
-    """Device time and kernel launches of computing ``longest_first``.
-
-    The launches are None when the profiler saw no kernel at all: a session
-    around one call of it has recorded no device event in some H100 runs,
-    which would read as 0 launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    reps = 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            longest_first(torch, binning)
-        torch.cuda.synchronize()
-    launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
-    return {"order_ms": timer.ms(lambda: longest_first(torch, binning), 30),
-            "order_launches": launches / reps or None}
-
-
 def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p frame"):
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
     kw = dict(grid_x=grid_x, **composite_kw(cfg))
     args = (splats_t, binning.tile_chunk_start, binning.tile_count)
-    order = longest_first(torch, binning)
     got = comp.composite_forward(*args, **kw)
     again = comp.composite_forward(*args, **kw)
-    ordered = comp.composite_forward(*args, tile_order=order, **kw)
     ref, work = comp.composite_forward_plain(*args, count_work=True, **kw)
     culled = comp.composite_forward_plain(*args, warp_cull=True, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, again) or not torch.equal(got, ordered):
-        raise AssertionError("composite_forward is not bitwise repeatable in any tile order")
+    if not torch.equal(got, again):
+        raise AssertionError("composite_forward is not bitwise repeatable")
     if not torch.equal(culled, ref):
         raise AssertionError("plain composite forward: the warp cull changed the output")
     rgb_err = float((got[:, 0:3] - ref[:, 0:3]).abs().max())
@@ -449,8 +421,6 @@ def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p f
         "blocks_per_sm": blocks,
         "evaluated_pairs": work.evaluated, "contributing_pairs": work.contributing,
         "ms": timer.ms(lambda: comp.composite_forward(*args, **kw), 30),
-        "ms_longest_first": timer.ms(
-            lambda: comp.composite_forward(*args, tile_order=order, **kw), 30),
         "plain_ms": timer.ms(lambda: comp.composite_forward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops),
@@ -460,11 +430,11 @@ def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p f
         "final_t_max_abs_err": t_err, "bitwise_equal_plain": True,
     }
     log(f"  composite_forward ({label}, layout unit {kw['chunk']}): T={T} "
-        f"Kp={splats_t.shape[1]} instances={inst}  kernel {rec['ms']:.4f} ms (longest tiles "
-        f"first {rec['ms_longest_first']:.4f})  plain {rec['plain_ms']:.2f} ms  bound "
+        f"Kp={splats_t.shape[1]} instances={inst}  kernel {rec['ms']:.4f} ms  plain "
+        f"{rec['plain_ms']:.2f} ms  bound "
         f"{rec['bound_ms']:.4f} ({rec['bound_by']}, kept pairs; all pairs "
         f"{rec['bound_ms_all_pairs']:.4f})  bitwise equal to plain (with and without the "
-        f"cull), repeatable, any tile order;  {blocks} blocks resident per SM")
+        f"cull), repeatable;  {blocks} blocks resident per SM")
     log_work("forward", work)
     log_tiles(prof)
     return rec
@@ -743,15 +713,13 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
     grad[:, 0:4] = torch.from_numpy(
         rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)).cuda()
     args = (*tables, out, grad)
-    order = longest_first(torch, binning)
     got = comp.composite_backward(*args, **kw)
     again = comp.composite_backward(*args, **kw)
-    ordered = comp.composite_backward(*args, tile_order=order, **kw)
     ref, bwork = comp.composite_backward_plain(*args, count_work=True, **kw)
     culled = comp.composite_backward_plain(*args, warp_cull=True, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, again) or not torch.equal(got, ordered):
-        raise AssertionError("composite_backward is not bitwise repeatable in any tile order")
+    if not torch.equal(got, again):
+        raise AssertionError("composite_backward is not bitwise repeatable")
     if not torch.equal(culled, ref):
         raise AssertionError("plain composite backward: the warp cull changed the rows")
     assert_rows_close(torch, got[:9], ref[:9], "composite_backward")
@@ -789,26 +757,21 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
         "forward_final_t_max_abs_err": fwd_t_err,
         "forward_ms": timer.ms(lambda: comp.composite_forward(*tables, **kw), 30),
         "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
-        "ms_longest_first": timer.ms(
-            lambda: comp.composite_backward(*args, tile_order=order, **kw), 30),
-        **order_cost(torch, timer, binning),
         "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
     }
-    order_launches = f"{rec['order_launches']:g}" if rec["order_launches"] else "unmeasured"
     log(f"  composite_forward at these shapes: {rec['forward_ms']:.4f} ms  bitwise equal to "
         f"its plain version")
     log(f"  composite_backward ({label}, layout unit {kw['chunk']}): T={T} Kp={Kp} "
         f"instances={inst} walked pairs="
         f"{walked} contributing={work.contributing} nonzero rows={reduced}  kernel "
-        f"{rec['ms']:.4f} ms (longest tiles first {rec['ms_longest_first']:.4f}; their order "
-        f"{rec['order_ms']:.4f} ms in {order_launches} launches)  plain "
+        f"{rec['ms']:.4f} ms  plain "
         f"{rec['plain_ms']:.2f} ms  bound {rec['bound_ms']:.4f} ({rec['bound_by']}; bytes "
         f"{nbytes} -> {b_bytes:.4f}, ops of kept pairs {ops} -> {b_ops:.4f}; all pairs "
         f"{rec['bound_ms_all_pairs']:.4f})  max err {err:.3g} ({rel:.3g} of the row's scale)  "
-        f"bitwise repeatable in any tile order; plain rows bitwise equal with the cull;  "
+        f"bitwise repeatable; plain rows bitwise equal with the cull;  "
         f"{blocks} blocks resident per SM")
     log_work("backward", bwork)
     log_tiles(prof)

@@ -48,8 +48,8 @@ def nvcc() -> str:
     return path
 
 
-def _target(name: str, defines=()) -> str:
-    h = hashlib.sha256(" ".join((*FLAGS, *defines)).encode())
+def _target(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -57,13 +57,13 @@ def _target(name: str, defines=()) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str, defines=()):
-    out = _target(name, defines)
+def _start(name: str):
+    out = _target(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *FLAGS, *defines, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -88,25 +88,22 @@ def build_all(names=SOURCES) -> None:
             _finish(n, job)
 
 
-def load(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
+def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Open ``lib<name>``, building it first if needed, with ``argtypes`` set.
 
     ``signatures`` maps each exported function to its ctypes argument types;
-    every function returns a ``cudaError_t`` as int.  ``defines`` (``-D``
-    flags) build a variant of the source beside the default one; the port
-    itself always loads the default.
+    every function returns a ``cudaError_t`` as int.
     """
-    key = (name, *defines)
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
-            _finish(" ".join(key), _start(name, defines))
-            lib = ctypes.CDLL(_target(name, defines))
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(_target(name))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
-            _libs[key] = lib
+            _libs[name] = lib
         return lib
 
 

@@ -81,9 +81,9 @@
 //   order over the warps whose ballot bit is set, and written once.  No
 //   atomics: the rows are the same bits every launch.
 // No tensor cores: the row sums are fp32 sums over pixels held to rtol
-// 5e-4, which TF32's 10-bit mantissa cannot meet.  The batch size, the
-// instances per reduction and the launch bound are compile-time constants;
-// composite_variants.py times the alternatives.
+// 5e-4, which TF32's 10-bit mantissa cannot meet.  A 64-instance batch
+// with two instances per reduction, and a launch bound that forces 4 blocks
+// per SM, were timed on the card and not adopted (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,30 +99,13 @@ using composite::STRIDE;
 using composite::TILE;
 using composite::WARPS;
 
-// The launch bound; a variant build may also ask the compiler to fit
-// COMPOSITE_BWD_MIN_BLOCKS blocks on one SM (it then caps the registers
-// a thread).  Left to itself (no minimum) the compiler allocates fewer
-// registers than with a minimum of 1.
-#ifdef COMPOSITE_BWD_MIN_BLOCKS
-#define KERNEL_BOUNDS __launch_bounds__(NPIX, COMPOSITE_BWD_MIN_BLOCKS)
-#else
-#define KERNEL_BOUNDS __launch_bounds__(NPIX)
-#endif
-#ifndef COMPOSITE_BWD_BATCH
-#define COMPOSITE_BWD_BATCH 32
-#endif
-#ifndef COMPOSITE_BWD_R
-#define COMPOSITE_BWD_R 3
-#endif
-
-constexpr int BATCH = COMPOSITE_BWD_BATCH;  // instances staged at a time
+constexpr int BATCH = 32;  // instances staged at a time
 constexpr int G = BATCH / 32;
 constexpr int NGRAD = 9;
-constexpr int R = COMPOSITE_BWD_R;          // instances per reduction round
+constexpr int R = 3;                        // instances per reduction round (flush_rows)
 constexpr int RROWS = R * NGRAD;            // rows of a warp's transpose buffer
 constexpr int RSTRIDE = 33;                 // one row: 32 lanes, padded
 constexpr int PSTRIDE = WARPS * NGRAD + 1;  // one instance's partials, padded
-static_assert(BATCH % 32 == 0 && BATCH <= NPIX && RROWS <= 32, "batch / reduction shape");
 
 // One (instance, pixel) pair up to the forward's skip tests: pass is true
 // when power <= 0 and alpha >= alpha_min.
@@ -177,11 +160,12 @@ __device__ __forceinline__ void flush_rows(const float* red, float* part, int la
   __syncwarp();
 }
 
-__global__ void KERNEL_BOUNDS
+// No minimum of resident blocks: left to itself the compiler allocates
+// fewer registers than with a minimum of 1.
+__global__ void __launch_bounds__(NPIX)
 composite_backward_kernel(const float* __restrict__ splats, long long Kp,
                           const int32_t* __restrict__ tile_chunk_start,
                           const int32_t* __restrict__ tile_count,
-                          const int32_t* __restrict__ tile_order,
                           const float* __restrict__ fwd_out,
                           const float* __restrict__ grad_out, int grid_x, int chunk,
                           float alpha_max, float alpha_min, float* __restrict__ dsplats) {
@@ -192,7 +176,7 @@ composite_backward_kernel(const float* __restrict__ splats, long long Kp,
   __shared__ uint16_t s_list[WARPS][BATCH];
   __shared__ int s_wn[WARPS];
 
-  const int t = tile_order ? tile_order[blockIdx.x] : blockIdx.x;
+  const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
@@ -314,17 +298,14 @@ composite_backward_kernel(const float* __restrict__ splats, long long Kp,
 
 extern "C" {
 
-// tile_order: null, or a permutation of the tiles; block b computes tile
-// tile_order[b].  Each tile is one block's whole work and owns its rows, so
-// the output does not depend on the order.
 int composite_backward(const void* splats, long long Kp, const void* tile_chunk_start,
-                       const void* tile_count, const void* tile_order, int num_tiles,
+                       const void* tile_count, int num_tiles,
                        const void* fwd_out, const void* grad_out, int grid_x, int chunk,
                        float alpha_max, float alpha_min, void* dsplats, void* stream) {
   if (num_tiles < 1 || grid_x < 1 || chunk < 1) return (int)cudaErrorInvalidValue;
   composite_backward_kernel<<<num_tiles, NPIX, 0, (cudaStream_t)stream>>>(
       (const float*)splats, Kp, (const int32_t*)tile_chunk_start,
-      (const int32_t*)tile_count, (const int32_t*)tile_order, (const float*)fwd_out,
+      (const int32_t*)tile_count, (const float*)fwd_out,
       (const float*)grad_out, grid_x, chunk, alpha_max, alpha_min, (float*)dsplats);
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,9 @@
 // (ops/kernels/composite.py).  A warp leaves the batch once all its pixels
 // are done (__all_sync after each 32 instances), the block once all 256 are
 // (__syncthreads_count).  Per pixel, the order and the float operations are
-// unchanged, built with -fmad=false.  The batch size and the launch bound
-// are compile-time constants; composite_variants.py times the alternatives.
+// unchanged, built with -fmad=false.  A 128-instance batch and launch
+// bounds that force more blocks per SM were timed on the card and not
+// adopted (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,34 +67,21 @@ using composite::ROWS;
 using composite::STRIDE;
 using composite::TILE;
 
-// The launch bound; a variant build may also ask the compiler to fit
-// COMPOSITE_FWD_MIN_BLOCKS blocks on one SM (it then caps the registers
-// a thread).  Left to itself (no minimum) the compiler allocates fewer
-// registers than with a minimum of 1.
-#ifdef COMPOSITE_FWD_MIN_BLOCKS
-#define KERNEL_BOUNDS __launch_bounds__(NPIX, COMPOSITE_FWD_MIN_BLOCKS)
-#else
-#define KERNEL_BOUNDS __launch_bounds__(NPIX)
-#endif
-#ifndef COMPOSITE_FWD_BATCH
-#define COMPOSITE_FWD_BATCH 256
-#endif
-
-constexpr int BATCH = COMPOSITE_FWD_BATCH;  // instances staged at a time
+constexpr int BATCH = 256;  // instances staged at a time, one per thread
 constexpr int G = BATCH / 32;
-static_assert(BATCH % 32 == 0 && BATCH <= NPIX, "batch shape");
 
-__global__ void KERNEL_BOUNDS
+// No minimum of resident blocks: left to itself the compiler allocates
+// fewer registers than with a minimum of 1.
+__global__ void __launch_bounds__(NPIX)
 composite_forward_kernel(const float* __restrict__ splats, long long Kp,
                          const int32_t* __restrict__ tile_chunk_start,
-                         const int32_t* __restrict__ tile_count,
-                         const int32_t* __restrict__ tile_order, int grid_x, int chunk,
+                         const int32_t* __restrict__ tile_count, int grid_x, int chunk,
                          float alpha_max, float alpha_min, float eps,
                          float* __restrict__ out) {
   __shared__ __align__(16) float s_buf[2][BATCH * STRIDE];
   __shared__ unsigned s_bal[composite::WARPS][G];
 
-  const int t = tile_order ? tile_order[blockIdx.x] : blockIdx.x;
+  const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
@@ -178,18 +166,13 @@ composite_forward_kernel(const float* __restrict__ splats, long long Kp,
 
 extern "C" {
 
-// tile_order: null, or a permutation of the tiles; block b computes tile
-// tile_order[b].  Each tile is one block's whole work, so the output does
-// not depend on the order.
 int composite_forward(const void* splats, long long Kp, const void* tile_chunk_start,
-                      const void* tile_count, const void* tile_order, int num_tiles, int grid_x,
-                      int chunk, float alpha_max, float alpha_min, float eps, void* out,
-                      void* stream) {
+                      const void* tile_count, int num_tiles, int grid_x, int chunk,
+                      float alpha_max, float alpha_min, float eps, void* out, void* stream) {
   if (num_tiles < 1 || grid_x < 1 || chunk < 1) return (int)cudaErrorInvalidValue;
   composite_forward_kernel<<<num_tiles, NPIX, 0, (cudaStream_t)stream>>>(
       (const float*)splats, Kp, (const int32_t*)tile_chunk_start,
-      (const int32_t*)tile_count, (const int32_t*)tile_order, grid_x, chunk, alpha_max,
-      alpha_min, eps, (float*)out);
+      (const int32_t*)tile_count, grid_x, chunk, alpha_max, alpha_min, eps, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ open in the middle of a 128-row chunk; nothing here depends on alignment.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -37,13 +37,12 @@ OUT_ROWS = 8
 _P = ctypes.c_void_p
 _OCC = (ctypes.POINTER(ctypes.c_int),)
 _SIGNATURES = {
-    "composite_forward": (_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_float, _P, _P),
+    "composite_forward": (_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P),
     "composite_forward_occupancy": _OCC,
 }
 _BWD_SIGNATURES = {
-    "composite_backward": (_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int, _P, _P,
+    "composite_backward": (_P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, _P,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                            _P, _P),
     "composite_backward_occupancy": _OCC,
@@ -201,7 +200,7 @@ def composite_forward_plain(
         dx = xg - px
         dy = yg - py
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.minimum(amax, op * torch.exp(power))
+        alpha = torch.fmin(amax, op * torch.exp(power))  # drops a NaN, as CUDA's fminf
         live = valid & ~done
         skip = (power > 0.0) | (alpha < alpha_min) | ~live
         if warp_cull or count_work:
@@ -236,7 +235,7 @@ def _count(walked, contrib, keep, keep_w, warp_walked):
                         _by_warp(contrib).any(-1).sum()])
 
 
-def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=(), order=None):
+def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=()):
     """Raise on what the kernels do not take; True when the inputs lie on the CPU."""
     if splats_t.dtype != torch.float32 or splats_t.dim() != 2 or splats_t.shape[0] != SPLAT_WIDTH:
         raise ValueError("splats_t must be (16, Kp) float32, got "
@@ -250,11 +249,6 @@ def _check_inputs(splats_t, tile_chunk_start, tile_count, tile_rows=(), order=No
     for name, t in tile_rows:
         if t.dtype != torch.float32 or tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want} float32, got {t.dtype} {tuple(t.shape)}")
-    if order is not None:
-        if order.dtype != torch.int32 or order.shape != tile_count.shape:
-            raise ValueError(f"tile_order must be {tuple(tile_count.shape)} int32, got "
-                             f"{order.dtype} {tuple(order.shape)}")
-        tile_rows = (*tile_rows, ("tile_order", order))
     tensors = (splats_t, tile_chunk_start, tile_count, *(t for _, t in tile_rows))
     if splats_t.device.type == "cpu":
         return True
@@ -273,18 +267,15 @@ def composite_forward(
     alpha_max: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
-    tile_order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(16, Kp) fp32 splats, (T,) int32 tables -> (T, 8, 256) fp32.
 
     Launches ``csrc/composite_fwd.cu``, the port of ``composite.py:
     _forward_kernel``, ``stream_composite.py:_stream_forward_kernel`` and,
     with ``chunk = sub_chunk``, ``packed_composite.py:_packed_forward_kernel``.
-    ``tile_order``, a (T,) int32 permutation, sets the order in which the
-    kernel's blocks take the tiles; the output does not depend on it.
     """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min, eps=eps)
-    if _check_inputs(splats_t, tile_chunk_start, tile_count, order=tile_order):
+    if _check_inputs(splats_t, tile_chunk_start, tile_count):
         return composite_forward_plain(splats_t, tile_chunk_start, tile_count, **kw)
     lib = _build.load("composite_fwd", _SIGNATURES)
     splats_t = splats_t.contiguous()
@@ -295,8 +286,7 @@ def composite_forward(
     stream = torch.cuda.current_stream(splats_t.device).cuda_stream
     err = lib.composite_forward(
         splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(),
-        _order_ptr(tile_order), T, grid_x, chunk, alpha_max, alpha_min, eps, out.data_ptr(),
-        stream)
+        T, grid_x, chunk, alpha_max, alpha_min, eps, out.data_ptr(), stream)
     _build.check(err, "composite_forward")
     composite_forward.launches += 1
     return out
@@ -356,7 +346,7 @@ def composite_backward_plain(
         dy = yg - py
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         g = torch.exp(power)
-        alpha = torch.minimum(amax, op * g)
+        alpha = torch.fmin(amax, op * g)
         skip = (power > 0.0) | (alpha < alpha_min) | ~in_tile[:, None] | done
         if warp_cull or count_work:
             keep_w = _warp_keep(s, origins, alpha_min)  # (T, WARPS)
@@ -397,7 +387,6 @@ def composite_backward(
     alpha_max: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     eps: float = 1e-4,
-    tile_order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(16, Kp) splats, tables, the forward's (T, 8, 256) out and the upstream
     gradient (rows 0-3 read) -> (16, Kp) per-instance gradient rows.
@@ -406,11 +395,10 @@ def composite_backward(
     Launches ``csrc/composite_bwd.cu``, the port of ``stream_composite.py:
     _stream_backward_kernel``, ``composite.py:_backward_kernel`` and, with
     ``chunk = sub_chunk``, ``packed_composite.py:_packed_backward_kernel``.
-    ``tile_order`` as in ``composite_forward``.
     """
     kw = dict(grid_x=grid_x, chunk=chunk, alpha_max=alpha_max, alpha_min=alpha_min)
     if _check_inputs(splats_t, tile_chunk_start, tile_count,
-                     (("fwd_out", fwd_out), ("grad_out", grad_out)), order=tile_order):
+                     (("fwd_out", fwd_out), ("grad_out", grad_out))):
         return composite_backward_plain(splats_t, tile_chunk_start, tile_count, fwd_out,
                                         grad_out, eps=eps, **kw)
     lib = _build.load("composite_bwd", _BWD_SIGNATURES)
@@ -426,8 +414,7 @@ def composite_backward(
     stream = torch.cuda.current_stream(splats_t.device).cuda_stream
     err = lib.composite_backward(
         splats_t.data_ptr(), splats_t.shape[1], starts.data_ptr(), counts.data_ptr(),
-        _order_ptr(tile_order), T,
-        fwd_out.data_ptr(), grad_out.data_ptr(), grid_x, chunk, alpha_max, alpha_min,
+        T, fwd_out.data_ptr(), grad_out.data_ptr(), grid_x, chunk, alpha_max, alpha_min,
         dsplats.data_ptr(), stream)
     _build.check(err, "composite_backward")
     composite_backward.launches += 1
@@ -435,10 +422,6 @@ def composite_backward(
 
 
 composite_backward.launches = 0
-
-
-def _order_ptr(tile_order):
-    return None if tile_order is None else tile_order.contiguous().data_ptr()
 
 
 def occupancy() -> dict:

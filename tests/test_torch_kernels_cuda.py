@@ -302,7 +302,10 @@ def cull_scene(seed, kind, n_max=48, chunk=4, grid=(3, 2), counts=None):
     "off_tile" (centres up to 12 px outside the tile), "row_boundary"
     (centres on pixel rows and half-way between), "clamped" (opacity >= 1,
     so alpha sits at alpha_max), "opaque" (pixels terminate early),
-    "long_tile" (faint small splats, so pixels walk thousands), "mixed".
+    "long_tile" (faint small splats, so pixels walk thousands), "mixed",
+    "non_finite" (the degenerate conics, indefinite and zero-a ones
+    included, and a NaN as the last instance of each tile, in field
+    t % 6 of tile t: x, y, a, b, c or opacity).
     The layout unit is ``chunk``; Kp is 3 rows past the last tile's chunk,
     so never a multiple of 4.
     """
@@ -333,9 +336,14 @@ def cull_scene(seed, kind, n_max=48, chunk=4, grid=(3, 2), counts=None):
             op = rng.uniform(0.9, 1.5, n)
         if kind == "long_tile":
             op = rng.uniform(0.01, 0.1, n)
-        conic = _conic(rng, n, "elongated" if kind == "mixed" and t % 2 else kind)
+        conic_kind = {"mixed": "elongated" if t % 2 else kind, "non_finite": "degenerate"}
+        conic = _conic(rng, n, conic_kind.get(kind, kind))
         rows = np.stack([x, y, conic[:, 0], conic[:, 1], conic[:, 2], op,
                          *rng.uniform(0, 1, (3, n))])
+        if kind == "non_finite":
+            # alpha = min(alpha_max, NaN) is alpha_max (fminf), so the NaN
+            # instance blends into every live pixel of its tile.
+            rows[t % 6, n - 1] = np.nan
         s = starts[t] * chunk
         splats[:9, s:s + n] = rows.astype(np.float32)
     return (torch.from_numpy(splats), torch.from_numpy(starts.astype(np.int32)),
@@ -344,8 +352,17 @@ def cull_scene(seed, kind, n_max=48, chunk=4, grid=(3, 2), counts=None):
 
 # (kind, counts): "long_tile" is one tile of 5,000 instances, so the kernels
 # walk many batches (32 instances a batch in the backward, 256 in the forward).
+# The other kinds sit on the edges of the warp cull (composite_common.cuh:
+# warp_keeps): a pair it dropped wrongly would change the forward's bits.
 REDESIGN_CASES = [("long_tile", [5000]), ("knife_opacity", None), ("opaque", None),
-                  ("mixed", None)]
+                  ("mixed", None), ("degenerate", None), ("elongated", None),
+                  ("off_tile", None), ("row_boundary", None), ("clamped", None),
+                  ("non_finite", None)]
+
+
+def same_bits(a, b):
+    """Bitwise equal, NaNs included: the float32 bit patterns."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("unit", [1, 2, 4])
@@ -372,8 +389,11 @@ def test_redesigned_composite_kernels(cuda, kind, counts, unit):
     again = comp.composite_backward(*tables, out, grad, **kw)
     rows = comp.composite_backward_plain(*tables, out, grad, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    assert_rows_close(got, rows)
+    assert same_bits(got, again)
+    nan = rows.isnan()  # "non_finite": rows of the NaN instances
+    assert torch.equal(got.isnan(), nan)
+    assert bool(nan.any()) == (kind == "non_finite")
+    assert_rows_close(got.masked_fill(nan, 0.0), rows.masked_fill(nan, 0.0))
     # The same instances at a 128-row layout (the "mixed" schedule's):
     # bitwise the same forward, and the same rows at the moved positions.
     msplats, mstarts, mcnt, _ = cull_scene(31, kind, chunk=128, grid=grid, counts=counts)
@@ -384,19 +404,10 @@ def test_redesigned_composite_kernels(cuda, kind, counts, unit):
     assert torch.equal(mout, out)
     for t in range(cnt.shape[0]):
         a, b, n = int(starts[t]) * unit, int(mstarts[t]) * 128, int(cnt[t])
-        assert torch.equal(got[:, a:a + n], mgot[:, b:b + n])
+        assert same_bits(got[:, a:a + n], mgot[:, b:b + n])
 
 
-def test_tile_order_and_occupancy(cuda):
-    splats_t, starts, cnt, gx = cull_scene(32, "mixed", chunk=2)
-    kw = dict(grid_x=gx, chunk=2)
-    tables = [t.to(cuda) for t in (splats_t, starts, cnt)]
-    order = torch.argsort(tables[2], descending=True, stable=True).to(torch.int32)
-    out = comp.composite_forward(*tables, **kw)
-    grad = torch.ones_like(out)
-    rows = comp.composite_backward(*tables, out, grad, **kw)
-    assert torch.equal(comp.composite_forward(*tables, tile_order=order, **kw), out)
-    assert torch.equal(comp.composite_backward(*tables, out, grad, tile_order=order, **kw), rows)
+def test_composite_occupancy(cuda):
     occ = comp.occupancy()
     assert set(occ) == {"composite_forward", "composite_backward"}
     assert min(occ.values()) >= 1
