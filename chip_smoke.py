@@ -24,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    over 67 TFLOP/s; the composite's operations counted on the pairs its
    warp cull keeps), the frame's tile-length distribution and the plain
    version's Work (pixel and (instance, warp) pairs walked, kept by the
-   cull, contributing);
+   cull, contributing).  For the ordered fills also: the host time to
+   enqueue one wrapper call, the device kernels one call launches by name
+   (torch.profiler), the PyTorch forms of the prefix fill (the fastest is
+   its library time) and, as a floor, a one-element add_ timed the same way;
 5. a reduced scene (640x360, 5k gaussians, fp32 MLP tier) rendered on the
    card through the kernels and on the CPU through the plain versions:
    image rtol 1e-4 / atol 2e-5, final_T rtol 1e-4 / atol 2e-6, except at
@@ -50,7 +53,9 @@ Phases (any failure raises and the script exits non-zero):
    with the default learning rates at a fixed camera, time and target
    (instance capacity 524,288, worst-case slack) must not overflow and must
    end with a lower loss than they start;
-7. the composite forward (bitwise) and backward kernels against their
+7. the ordered fills at the 800x800 train shapes (bitwise, time, bound,
+   host time; the place at phase 6's and phase 9's Kp); the composite
+   forward (bitwise) and backward kernels against their
    plain versions on the phase-6 frame's binning and a seeded upstream
    gradient: gradient rows rtol 5e-4 / atol 2e-5 x the row's max |g|
    (tests/test_rasterize.py:98), bitwise equal over two launches, the
@@ -96,7 +101,10 @@ Phases (any failure raises and the script exits non-zero):
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
-PERF.md section 5).
+PERF.md section 5).  ``--fills`` runs phases 1-2 and the ordered-fill
+measurements of phases 4 and 7 alone and prints them, without the ok line:
+run from a copy of another tree (chip_smoke.py beside its package), it
+compares the two trees' fills in one call.
 
 Prints a JSON line of kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -122,6 +130,8 @@ INSTANCE_CAPACITY, ALIGNED_SLACK = 576 * 1024, 640 * 1024  # bench.py:64
 FRAMES = 6
 ITERATION = 10_000
 PROFILE = "--profile" in sys.argv[1:]
+FILLS_ONLY = "--fills" in sys.argv[1:]
+NTILES = ((W + 15) // 16) * ((H + 15) // 16)
 
 RENDER_LAUNCHES = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
 STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1)
@@ -129,6 +139,10 @@ PACKED_SUB = 32  # bench.py:251 takes RasterizeConfig's default sub_chunk
 CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
 TURNS, TURN_STEPS = 4, 5  # chained packed / mixed steps, in turns
 TRAIN_W = TRAIN_H = 800
+TRAIN_TILES = (TRAIN_W // 16) * (TRAIN_H // 16)
+# ``--fills``: instances per gaussian and per tile at 1080p and at 800x800,
+# as phases 4 and 7 derive them from the frames' binnings.
+FILL_MEANS = ((5, 67), (2, 90))  # 544,133 and 224,700 instances
 TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
 LEARN_ICAP = 512 * 1024
 TRAIN_ITERATION = 5000  # past the 3000-iteration warmup
@@ -233,48 +247,119 @@ def fill_inputs(torch, rng, n, K, C, active, mean_len):
     return torch.from_numpy(pos).cuda(), torch.from_numpy(delta).cuda()
 
 
-def check_fill_prefix(torch, timer, rng, label, n, K, C, active, mean_len):
+def host_us(torch, fn, calls=200, batches=5):
+    """Host microseconds to enqueue one call: ``calls`` calls after a warm-up,
+    timed on the host clock before the one synchronise that follows them;
+    the median over ``batches`` such runs (the host clock is shared)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def kernel_split(torch, fn, label, reps=50):
+    """Device kernels (and memsets) of one wrapper call by name, from
+    torch.profiler over ``reps`` warm calls (no L2 flush): launches per call
+    and device ms per call.  None when the profiler recorded no device event."""
+    for _ in range(3):
+        rows = profile_calls(torch, fn, reps, host_us(torch, fn, 20) / 1e3, label)["kernels"]
+        if rows:
+            return rows
+    log(f"  profile ({label}): the profiler recorded no device event")
+    return None
+
+
+def prefix_library_forms(torch, pos, delta, K):
+    """PyTorch forms of zero + scatter + scan computing the prefix fill's
+    (C, K) int32 result: name -> function."""
+    C = delta.shape[1]
+    ok = (pos >= 0) & (pos < K)
+    idx = pos[ok].long()
+    src = delta[ok]
+    idx_rows = idx[None, :].expand(C, -1).contiguous()
+    src_rows = src.t().contiguous()
+    seg = torch.zeros((C, K), dtype=torch.int32, device="cuda")
+    seg_kc = torch.zeros((K, C), dtype=torch.int32, device="cuda")
+    out = torch.empty((C, K), dtype=torch.int32, device="cuda")
+
+    def rows_dim1():  # the first yardstick kept in the records: an int64 result
+        seg.zero_()
+        seg.scatter_(1, idx_rows, src_rows)
+        return torch.cumsum(seg, dim=1)
+
+    def per_channel():
+        for c in range(C):
+            row = seg[c]
+            row.zero_()
+            row.scatter_(0, idx, src_rows[c])
+            torch.cumsum(row, 0, dtype=torch.int32, out=out[c])
+        return out
+
+    def kc_dim0():
+        seg_kc.zero_()
+        seg_kc.index_put_((idx,), src)
+        return torch.cumsum(seg_kc, 0, dtype=torch.int32).t().contiguous()
+
+    return {"scatter_+cumsum(dim=1) of (C, K), int64 out": rows_dim1,
+            "per channel: scatter_ + cumsum(dim=0, dtype=int32, out=row)": per_channel,
+            "(K, C) index_put_ + cumsum(dim=0, dtype=int32) + t().contiguous()": kc_dim0}
+
+
+def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len, full=True):
+    """The prefix fill vs its plain version, bitwise; its time, bound and host
+    cost, and with ``full`` the plain version's time, the PyTorch forms of
+    the same function and the device kernels one call launches."""
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
 
-    pos, delta = fill_inputs(torch, rng, n, K, C, active, mean_len)
+    pos, delta = fill_inputs(torch, np.random.default_rng(seed), n, K, C, active, mean_len)
     got = of.ordered_prefix_fill(pos, delta, K)
     ref = of.prefix_fill_plain(pos, delta, K)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError(f"ordered_prefix_fill ({label}) differs from its plain version")
-    ok = pos < K
-    idx = pos[ok].long()[None, :].expand(C, -1).contiguous()
-    src = delta[ok].t().contiguous()
-    seg = torch.zeros((C, K), dtype=torch.int32, device="cuda")
 
-    def library():
-        seg.zero_()
-        seg.scatter_(1, idx, src)
-        return torch.cumsum(seg, dim=1)
+    def call():
+        return of.ordered_prefix_fill(pos, delta, K)
 
-    if not torch.equal(library().to(torch.int32), ref):
-        raise AssertionError("scatter_+cumsum yardstick disagrees")
     rec = {
         "shape": label, "n": n, "K": K, "C": C,
-        "ms": timer.ms(lambda: of.ordered_prefix_fill(pos, delta, K), 50),
-        "plain_ms": timer.ms(lambda: of.prefix_fill_plain(pos, delta, K), 10),
-        "library_ms": timer.ms(library, 50),
+        "ms": timer.ms(call, 50),
         "bound_ms": bytes_ms(n * 4 + n * C * 4 + C * K * 4),
-        "max_abs_err": 0.0,
+        "host_us": host_us(torch, call), "max_abs_err": 0.0,
     }
+    text = ""
+    if full:
+        forms = prefix_library_forms(torch, pos, delta, K)
+        for name, fn in forms.items():
+            if not torch.equal(fn().to(torch.int32), ref):
+                raise AssertionError(f"library form {name} disagrees")
+        rec["plain_ms"] = timer.ms(lambda: of.prefix_fill_plain(pos, delta, K), 10)
+        rec["library_forms_ms"] = {name: timer.ms(fn, 50) for name, fn in forms.items()}
+        rec["split"] = kernel_split(torch, call, f"ordered_prefix_fill {label}")
+        text = (f"  plain {rec['plain_ms']:.4f}  library "
+                + "; ".join(f"{k} {v:.4f}" for k, v in rec["library_forms_ms"].items()))
     log(f"  ordered_prefix_fill {label}: n={n} K={K} C={C}  kernel {rec['ms']:.4f} ms  "
-        f"plain {rec['plain_ms']:.4f}  scatter_+cumsum (two calls) {rec['library_ms']:.4f}  "
-        f"bound {rec['bound_ms']:.4f}  bitwise equal")
+        f"bound {rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call{text}  bitwise equal")
     return rec
 
 
-def check_place(torch, timer, rng, n, Kp, tiles, mean_count):
-    """Chunk-aligned per-tile runs of positions, then Kp + row sentinels."""
+def check_place(torch, timer, seed, n, Kp, tiles, mean_count, unit=128,
+                label="relayout place", full=True):
+    """Unit-aligned per-tile runs of positions, then Kp + row sentinels; the
+    same records as check_fill_prefix, the library call being scatter_."""
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
 
+    rng = np.random.default_rng(seed)
     counts = rng.integers(0, 2 * mean_count + 1, tiles)
-    chunks = (counts + 127) // 128
-    base = (np.cumsum(chunks) - chunks) * 128
+    chunks = (counts + unit - 1) // unit
+    base = (np.cumsum(chunks) - chunks) * unit
     pos = np.concatenate([b + np.arange(c) for b, c in zip(base, counts)])[:n]
     rows = np.arange(n)
     pos = np.where(rows < pos.shape[0], np.minimum(np.pad(pos, (0, n - pos.shape[0])),
@@ -285,26 +370,105 @@ def check_place(torch, timer, rng, n, Kp, tiles, mean_count):
     ref = of.place_plain(pos, vals, Kp)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
-        raise AssertionError("ordered_place_i32 differs from its plain version")
+        raise AssertionError(f"ordered_place_i32 ({label}) differs from its plain version")
     ok = pos < Kp
-    idx, src = pos[ok].long(), vals[ok]
-    out = torch.zeros(Kp, dtype=torch.int32, device="cuda")
 
-    def library():
-        return out.zero_().scatter_(0, idx, src)
+    def call():
+        return of.ordered_place_i32(pos, vals, Kp)
 
     rec = {
-        "shape": "relayout place", "n": n, "K": Kp, "valid": int(ok.sum()),
-        "ms": timer.ms(lambda: of.ordered_place_i32(pos, vals, Kp), 50),
-        "plain_ms": timer.ms(lambda: of.place_plain(pos, vals, Kp), 10),
-        "library_ms": timer.ms(library, 50),
-        "bound_ms": bytes_ms(n * 8 + Kp * 4),
-        "max_abs_err": 0.0,
+        "shape": label, "n": n, "K": Kp, "valid": int(ok.sum()),
+        "ms": timer.ms(call, 50), "bound_ms": bytes_ms(n * 8 + Kp * 4),
+        "host_us": host_us(torch, call), "max_abs_err": 0.0,
     }
-    log(f"  ordered_place_i32: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  plain "
-        f"{rec['plain_ms']:.4f}  scatter_ {rec['library_ms']:.4f}  bound "
-        f"{rec['bound_ms']:.4f}  bitwise equal")
+    text = ""
+    if full:
+        idx, src = pos[ok].long(), vals[ok]
+        out = torch.zeros(Kp, dtype=torch.int32, device="cuda")
+        rec["plain_ms"] = timer.ms(lambda: of.place_plain(pos, vals, Kp), 10)
+        rec["library_ms"] = timer.ms(lambda: out.zero_().scatter_(0, idx, src), 50)
+        rec["split"] = kernel_split(torch, call, f"ordered_place_i32 {label}")
+        text = f"  plain {rec['plain_ms']:.4f}  scatter_ {rec['library_ms']:.4f}"
+    log(f"  ordered_place_i32 {label}: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call{text}  bitwise equal")
     return rec
+
+
+def render_fills(torch, timer, per_gauss, per_tile, Kp):
+    """Phase 4's ordered-fill calls at the render-path shapes: the front fills
+    (C = 4 over the gaussians), the relayout fills (C = 2 over the tiles) and
+    the place, each gaussian and tile covering its mean length of positions.
+    Each call runs twice on the same inputs: the kernels alone first, then
+    with the plain version, the library forms and the profiler, so that no
+    kernel timing follows the library forms' long runs."""
+    calls = [
+        lambda full: check_fill_prefix(torch, timer, 0, "front fills", CAPACITY,
+                                       INSTANCE_CAPACITY, 4, N_GAUSS, per_gauss, full),
+        lambda full: check_fill_prefix(torch, timer, 1, "relayout fills", NTILES,
+                                       INSTANCE_CAPACITY, 2, int(NTILES * 0.97), per_tile, full),
+        lambda full: check_place(torch, timer, 2, INSTANCE_CAPACITY, Kp, NTILES, per_tile,
+                                 full=full),
+    ]
+    front, relay, place = recs = [call(False) for call in calls]
+    tiny = torch.zeros(1, device="cuda")
+    front["launch_floor_ms"] = timer.ms(lambda: tiny.add_(1), 50)
+    log(f"  launch floor (a one-element add_, timed the same way): "
+        f"{front['launch_floor_ms']:.4f} ms")
+    for rec, call in zip(recs, calls):
+        rec.update({k: v for k, v in call(True).items() if k not in rec})
+    return front, relay, place
+
+
+def train_fills(torch, timer, per_gauss, per_tile):
+    """Phase 7's ordered-fill calls at the 800x800 train shapes: the two
+    prefix fills, the place at phase 6's Kp ("mixed") and at phase 9's
+    ("packed", sub_chunk-aligned runs)."""
+    from gs_deformable_tpu_torch import config
+
+    kps = {p: kp_of(train_cfg(config, p), TRAIN_W, TRAIN_H) for p in (False, True)}
+    return {
+        "front": check_fill_prefix(torch, timer, 3, "train front fills", CAPACITY, TRAIN_ICAP,
+                                   4, N_GAUSS, per_gauss, full=False),
+        "relay": check_fill_prefix(torch, timer, 4, "train relayout fills", TRAIN_TILES,
+                                   TRAIN_ICAP, 2, int(TRAIN_TILES * 0.97), per_tile,
+                                   full=False),
+        "place_mixed": check_place(torch, timer, 5, TRAIN_ICAP, kps[False], TRAIN_TILES,
+                                   per_tile, 128, "train place, mixed", full=False),
+        "place_packed": check_place(torch, timer, 6, TRAIN_ICAP, kps[True], TRAIN_TILES,
+                                    per_tile, PACKED_SUB, "train place, packed", full=False),
+    }
+
+
+def fill_entries(front, relay, place, train, launches):
+    """The two ordered-fill entries of the kernels line.  The prefix fill's
+    library time is the fastest PyTorch form over both calls, named."""
+    forms = {k: front["library_forms_ms"][k] + relay["library_forms_ms"][k]
+             for k in front["library_forms_ms"]}
+    best = min(forms, key=forms.get)
+    src = "gs_deformable_tpu_torch/csrc/ordered_fill.cu"
+    rep = "gs_deformable_tpu/ops/pallas/ordered_fill.py:58"
+    prefix = {
+        "name": "ordered_prefix_fill", "route": "cuda", "source": src, "replaces": rep,
+        **launches["ordered_prefix_fill"], "max_abs_err": 0.0,
+        "ms": front["ms"] + relay["ms"], "plain_ms": front["plain_ms"] + relay["plain_ms"],
+        "bound_ms": front["bound_ms"] + relay["bound_ms"], "bound_by": "bytes",
+        "library_ms": forms[best], "library_call": f"{best} (two calls)",
+        "library_forms_ms": forms, "host_us": front["host_us"] + relay["host_us"],
+        "launch_floor_ms": front["launch_floor_ms"],
+        "train_ms": train["front"]["ms"] + train["relay"]["ms"],
+        "train_bound_ms": train["front"]["bound_ms"] + train["relay"]["bound_ms"],
+        "per_frame": "sum of its two calls per frame", "calls": [front, relay],
+        "train_calls": [train["front"], train["relay"]]}
+    placed = {
+        "name": "ordered_place_i32", "route": "cuda", "source": src, "replaces": rep,
+        **launches["ordered_place_i32"], "max_abs_err": 0.0,
+        "ms": place["ms"], "plain_ms": place["plain_ms"], "bound_ms": place["bound_ms"],
+        "bound_by": "bytes", "library_ms": place["library_ms"], "library_call": "scatter_",
+        "host_us": place["host_us"],
+        "train_ms": {k: train[f"place_{k}"]["ms"] for k in ("mixed", "packed")},
+        "train_bound_ms": {k: train[f"place_{k}"]["bound_ms"] for k in ("mixed", "packed")},
+        "calls": [place], "train_calls": [train["place_mixed"], train["place_packed"]]}
+    return prefix, placed
 
 
 def screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height,
@@ -1098,6 +1262,27 @@ def packed_checks(torch, timer):
     return rec, fwd, bwd
 
 
+def fills_only(torch, card):
+    """``--fills``: the ordered-fill checks and timings of phases 4 and 7
+    alone, at the mean segment lengths the full run derives (FILL_MEANS), so
+    that two trees can be compared in one call.  Prints the two kernel
+    entries (launches not counted), never the ok line."""
+    from gs_deformable_tpu_torch import config
+
+    timer = Timer(torch)
+    (rg, rt), (tg, tt) = FILL_MEANS
+    log("ordered fills at the render-path shapes (phase 4)")
+    front, relay, place = render_fills(torch, timer, rg, rt, kp_of(render_cfg(config), W, H))
+    log("ordered fills at the train-path shapes (phase 7)")
+    train = train_fills(torch, timer, tg, tt)
+    none = {"launches": None}
+    entries = fill_entries(front, relay, place, train,
+                           {"ordered_prefix_fill": none, "ordered_place_i32": none})
+    print(json.dumps({"card": card, "fills": [{k: v for k, v in e.items() if "calls" not in k}
+                                              for e in entries]}))
+    return 0
+
+
 def main():
     import torch
 
@@ -1131,6 +1316,9 @@ def main():
     occupancy = comp_kernels.occupancy()
     log(f"  blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 "
         f"threads a block): {occupancy}")
+
+    if FILLS_ONLY:
+        return fills_only(torch, card)
 
     log("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
     cfg = render_cfg(config)
@@ -1185,15 +1373,8 @@ def main():
 
     log("phase 4: kernels vs plain versions at the render-path shapes")
     timer = Timer(torch)
-    rng = np.random.default_rng(0)
-    ntiles = ((W + 15) // 16) * ((H + 15) // 16)
-    per_gauss = max(1, round(reqs[0][0] / N_GAUSS))
-    per_tile = max(1, round(reqs[0][0] / ntiles))
-    front = check_fill_prefix(torch, timer, rng, "front fills", CAPACITY, INSTANCE_CAPACITY,
-                              4, N_GAUSS, per_gauss)
-    relay = check_fill_prefix(torch, timer, rng, "relayout fills", ntiles, INSTANCE_CAPACITY,
-                              2, int(ntiles * 0.97), per_tile)
-    place = check_place(torch, timer, rng, INSTANCE_CAPACITY, Kp, ntiles, per_tile)
+    front, relay, place = render_fills(torch, timer, max(1, round(reqs[0][0] / N_GAUSS)),
+                                       max(1, round(reqs[0][0] / NTILES)), Kp)
     splats_t, binning, gx = frame_tiles(torch, state, net, cams[0], tanx, tany, cfg)
     comp = check_composite(torch, timer, splats_t, binning, gx, cfg)
 
@@ -1207,11 +1388,14 @@ def main():
     train_counts = train["launches"]
     learning = learning_phase(torch)
 
-    log("phase 7: composite backward vs its plain version at the train-path shapes")
+    log("phase 7: ordered fills and the composite backward at the train-path shapes")
     splats_t, binning, gx = frame_tiles(torch, ts.gaussians, ts.net, tcam, ttanx, ttany, tcfg,
                                         TRAIN_W, TRAIN_H, TRAIN_ITERATION)
     bwd = check_backward(torch, timer, splats_t, binning, gx, tcfg)
+    treq = int(binning.num_instances)
     del ts, splats_t, binning
+    train_fill = train_fills(torch, timer, max(1, round(treq / N_GAUSS)),
+                             max(1, round(treq / TRAIN_TILES)))
 
     log("phase 8: reduced train step, card vs CPU")
     reduced_step = reduced_step_check(torch)
@@ -1243,26 +1427,10 @@ def main():
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
          "bound_by": comp["bound_by"], "library_ms": None,
          "blocks_per_sm": occupancy["composite_forward"], "calls": [comp]},
-        {"name": "ordered_prefix_fill", "route": "cuda",
-         "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
-         "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
-         "launches": train_counts["ordered_prefix_fill"],
-         "launches_render": counts["ordered_prefix_fill"],
-         "launches_chunked": chunk_counts["ordered_prefix_fill"], "max_abs_err": 0.0,
-         "ms": total("ms", [front, relay]), "plain_ms": total("plain_ms", [front, relay]),
-         "bound_ms": total("bound_ms", [front, relay]), "bound_by": "bytes",
-         "library_ms": total("library_ms", [front, relay]),
-         "library_call": "scatter_+cumsum (two calls)",
-         "per_frame": "sum of its two calls per frame", "calls": [front, relay]},
-        {"name": "ordered_place_i32", "route": "cuda",
-         "source": "gs_deformable_tpu_torch/csrc/ordered_fill.cu",
-         "replaces": "gs_deformable_tpu/ops/pallas/ordered_fill.py:58",
-         "launches": train_counts["ordered_place_i32"],
-         "launches_render": counts["ordered_place_i32"],
-         "launches_chunked": chunk_counts["ordered_place_i32"], "max_abs_err": 0.0,
-         "ms": place["ms"], "plain_ms": place["plain_ms"], "bound_ms": place["bound_ms"],
-         "bound_by": "bytes", "library_ms": place["library_ms"],
-         "library_call": "scatter_", "calls": [place]},
+        *fill_entries(front, relay, place, train_fill, {
+            k: {"launches": train_counts[k], "launches_render": counts[k],
+                "launches_chunked": chunk_counts[k]}
+            for k in ("ordered_prefix_fill", "ordered_place_i32")}),
         {"name": "composite_backward", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/stream_composite.py:168",

@@ -2,14 +2,17 @@
 
 The port of ``gs_deformable_tpu/ops/pallas/ordered_fill.py`` (kernel
 ``_kernel``; CUDA source ``csrc/ordered_fill.cu``).  For int32 positions
-``pos`` sorted ascending and unique (entries >= K drop):
+``pos`` sorted ascending and unique (entries < 0 or >= K drop):
 
 - ``ordered_prefix_fill(pos, delta, K)``: ``out[c, k] = sum over j with
   pos[j] <= k of delta[j, c]``, field-major ``(C, K)``, ``C <= 8``;
 - ``ordered_place_i32(pos, vals, K)``: ``zeros(K).at[pos].set(vals)``.
 
 Both carry int32 end to end, so they are exact: the JAX version's fp32
-lanes hold the same integers (every value there is below 2^24).
+lanes hold the same integers (every value there is below 2^24).  Each call
+on the card is one kernel launch.  The prefix fill's launches share a small
+status buffer per device and stream, kept here with the epoch of its last
+launch (see the head note of the CUDA source).
 """
 
 from __future__ import annotations
@@ -23,15 +26,28 @@ from ... import _build
 MAX_C = 8
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "ordered_prefix_fill": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            _P, _P, _P, _P),
+    "ordered_prefix_fill": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                            ctypes.c_uint, _P, _P),
     "ordered_place_i32": (_P, _P, ctypes.c_int, ctypes.c_int, _P, _P),
-    "ordered_fill_block": (),
+    "ordered_fill_state_words": (ctypes.c_int,),
 }
+_LAST_EPOCH = 0xFFFFFFFF
+_status: dict = {}  # (device index, stream) -> [int64 status buffer, epoch of its last launch]
 
 
 def _lib():
     return _build.load("ordered_fill", _SIGNATURES)
+
+
+def _status_for(lib, device: torch.device, stream: int, K: int):
+    """The status buffer for a launch at K on ``stream`` and the launch's epoch."""
+    words = lib.ordered_fill_state_words(K)
+    st = _status.get((device.index, stream))
+    if st is None or st[0].numel() < words or st[1] == _LAST_EPOCH:
+        st = [torch.zeros((words,), dtype=torch.int64, device=device), 0]
+        _status[(device.index, stream)] = st
+    st[1] += 1
+    return st[0], st[1]
 
 
 def _check_pos(pos: torch.Tensor) -> None:
@@ -69,15 +85,13 @@ def ordered_prefix_fill(pos: torch.Tensor, delta: torch.Tensor, K: int) -> torch
     lib = _lib()
     pos = pos.contiguous()
     delta = delta.contiguous()
-    block = lib.ordered_fill_block()
-    nb = (K + block - 1) // block
-    starts = torch.empty((nb + 1,), dtype=torch.int32, device=pos.device)
-    totals = torch.empty((nb, C), dtype=torch.int32, device=pos.device)
+    if delta.data_ptr() % 16:  # the kernel reads rows with vector loads
+        delta = delta.clone()
     out = torch.empty((C, K), dtype=torch.int32, device=pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    state, epoch = _status_for(lib, pos.device, stream, K)
     err = lib.ordered_prefix_fill(pos.data_ptr(), delta.data_ptr(), n, C, K,
-                                  starts.data_ptr(), totals.data_ptr(),
-                                  out.data_ptr(), stream)
+                                  state.data_ptr(), epoch, out.data_ptr(), stream)
     _build.check(err, "ordered_prefix_fill")
     ordered_prefix_fill.launches += 1
     return out

@@ -35,6 +35,8 @@ from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as o
 from gs_deformable_tpu_torch.ops.rasterize import prepare_tiles
 from gs_deformable_tpu_torch.renderer import CameraArrays, render
 
+import fill_cases
+
 pytestmark = pytest.mark.cuda
 
 PREFIX_CASES = [(0, 500, 4096, 0.5), (1, 2000, 2000, 1.0), (2, 64, 8192, 0.0),
@@ -78,6 +80,63 @@ def test_place_kernel_bitwise(cuda, seed, n, K, frac):
     got = of.ordered_place_i32(p, v, K)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), of.place_plain(p.cpu(), v.cpu(), K))
+
+
+CARD_PREFIX_CASES = [*fill_cases.PREFIX_CASES, ("random", (1 << 21) + 12_347, 4),
+                     ("dense", (1 << 21) + 2, 2)]
+CARD_PLACE_CASES = [*fill_cases.PLACE_CASES, ("dense", (1 << 21) + 3)]
+
+
+@pytest.mark.parametrize("kind,K,C", CARD_PREFIX_CASES)
+def test_prefix_fill_kernel_adversarial(cuda, kind, K, C):
+    """The single-pass prefix fill on the position sets of tests/fill_cases.py
+    (block edges, a segment over many blocks, K not a multiple of 4, nothing
+    in range, n = 0, every channel count) and at K >= 2^21, where the
+    look-back chain runs over 512 blocks: bitwise, one launch a call."""
+    pos = fill_cases.positions(kind, K)
+    delta = fill_cases.values(pos.shape[0], C, 1 << 20)
+    p, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(delta).to(cuda)
+    before = launch_counts()["ordered_prefix_fill"]
+    got = of.ordered_prefix_fill(p, d, K)
+    torch.cuda.synchronize()
+    assert launch_counts()["ordered_prefix_fill"] == before + 1
+    assert torch.equal(got.cpu(), of.prefix_fill_plain(p.cpu(), d.cpu(), K))
+
+
+@pytest.mark.parametrize("kind,K", CARD_PLACE_CASES)
+def test_place_kernel_adversarial(cuda, kind, K):
+    pos = fill_cases.positions(kind, K)
+    vals = fill_cases.values(pos.shape[0], 1, 1 << 20)[:, 0]
+    p, v = torch.from_numpy(pos).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = launch_counts()["ordered_place_i32"]
+    got = of.ordered_place_i32(p, v, K)
+    torch.cuda.synchronize()
+    assert launch_counts()["ordered_place_i32"] == before + 1
+    assert torch.equal(got.cpu(), of.place_plain(p.cpu(), v.cpu(), K))
+
+
+def test_fill_launches_back_to_back(cuda):
+    """Three prefix fills and three places at different K on one stream with
+    no synchronise between them: each launch must find the status words and
+    the ticket ready for it (a new epoch; the counter reset by the last
+    block of the launch before)."""
+    calls = []
+    for i, (kind, K) in enumerate([("random", 3 * fill_cases.BLOCK + 5),
+                                   ("block_edges", 600_001), ("random", (1 << 21) + 7)]):
+        pos = torch.from_numpy(fill_cases.positions(kind, K, seed=i)).to(cuda)
+        calls.append((pos, torch.from_numpy(fill_cases.values(pos.shape[0], 3, 1 << 20, i)).to(cuda),
+                      K))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    outs = []
+    for i, (p, d, K) in enumerate(calls):
+        outs.append((of.ordered_prefix_fill(p, d, K), of.ordered_place_i32(p, d[:, 0], K)))
+        assert launch_counts()["ordered_prefix_fill"] == counts["ordered_prefix_fill"] + i + 1
+        assert launch_counts()["ordered_place_i32"] == counts["ordered_place_i32"] + i + 1
+    torch.cuda.synchronize()
+    for (p, d, K), (fill, placed) in zip(calls, outs):
+        assert torch.equal(fill.cpu(), of.prefix_fill_plain(p.cpu(), d.cpu(), K))
+        assert torch.equal(placed.cpu(), of.place_plain(p.cpu(), d[:, 0].cpu(), K))
 
 
 def _screen(seed, n, W, H, opaque, device):

@@ -1,7 +1,8 @@
 """Port parity: gs_deformable_tpu_torch ordered fill vs the JAX ordered_fill kernels.
 
 The plain versions (what the port runs on the CPU) must equal the JAX
-functions bit for bit on the cases of tests/test_ordered_fill.py.  The
+functions bit for bit on the cases of tests/test_ordered_fill.py and on the
+adversarial position sets of tests/fill_cases.py.  The
 CUDA kernel is held to its plain version by tests/test_torch_kernels_cuda.py
 and by chip_smoke.py at the render-path shapes.
 """
@@ -13,6 +14,8 @@ import torch
 
 from gs_deformable_tpu.ops.pallas.ordered_fill import ordered_place_i32, ordered_prefix_fill
 from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as tof
+
+import fill_cases
 
 PREFIX_CASES = [(0, 500, 4096, 0.5), (1, 2000, 2000, 1.0), (2, 64, 8192, 0.0),
                 (3, 3000, 1000, 0.3), (4, 1, 1, 1.0)]
@@ -77,3 +80,25 @@ def test_wrappers_reject_bad_inputs():
         tof.ordered_prefix_fill(pos.long(), torch.zeros((4, 2), dtype=torch.int32), 10)
     with pytest.raises(ValueError):
         tof.ordered_place_i32(pos, torch.zeros(4, dtype=torch.float32), 10)
+
+
+@pytest.mark.parametrize("kind,K,C", fill_cases.PREFIX_CASES)
+def test_prefix_fill_adversarial_matches_jax(kind, K, C):
+    """The position sets the card kernel is tested on (block edges, a segment
+    over many blocks, K not a multiple of 4, nothing in range, n = 0, every
+    channel count), held bitwise against JAX through the plain version."""
+    pos = fill_cases.positions(kind, K)
+    delta = fill_cases.values(pos.shape[0], C, 1000)
+    ref = np.asarray(ordered_prefix_fill(jnp.asarray(pos), jnp.asarray(delta, jnp.float32), K))
+    got = tof.ordered_prefix_fill(torch.from_numpy(pos), torch.from_numpy(delta), K)
+    assert got.dtype == torch.int32 and got.shape == (C, K)
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,K", fill_cases.PLACE_CASES)
+def test_place_adversarial_matches_jax(kind, K):
+    pos = fill_cases.positions(kind, K)
+    vals = np.abs(fill_cases.values(pos.shape[0], 1, 1 << 20)[:, 0])
+    ref = np.asarray(ordered_place_i32(jnp.asarray(pos), jnp.asarray(vals), K))
+    got = tof.ordered_place_i32(torch.from_numpy(pos), torch.from_numpy(vals), K)
+    np.testing.assert_array_equal(got.numpy(), ref)
