@@ -101,10 +101,7 @@ Phases (any failure raises and the script exits non-zero):
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
-PERF.md section 5).  ``--fills`` runs phases 1-2 and the ordered-fill
-measurements of phases 4 and 7 alone and prints them, without the ok line:
-run from a copy of another tree (chip_smoke.py beside its package), it
-compares the two trees' fills in one call.
+PERF.md section 5).
 
 Prints a JSON line of kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -130,7 +127,6 @@ INSTANCE_CAPACITY, ALIGNED_SLACK = 576 * 1024, 640 * 1024  # bench.py:64
 FRAMES = 6
 ITERATION = 10_000
 PROFILE = "--profile" in sys.argv[1:]
-FILLS_ONLY = "--fills" in sys.argv[1:]
 NTILES = ((W + 15) // 16) * ((H + 15) // 16)
 
 RENDER_LAUNCHES = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
@@ -140,9 +136,6 @@ CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
 TURNS, TURN_STEPS = 4, 5  # chained packed / mixed steps, in turns
 TRAIN_W = TRAIN_H = 800
 TRAIN_TILES = (TRAIN_W // 16) * (TRAIN_H // 16)
-# ``--fills``: instances per gaussian and per tile at 1080p and at 800x800,
-# as phases 4 and 7 derive them from the frames' binnings.
-FILL_MEANS = ((5, 67), (2, 90))  # 544,133 and 224,700 instances
 TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
 LEARN_ICAP = 512 * 1024
 TRAIN_ITERATION = 5000  # past the 3000-iteration warmup
@@ -282,11 +275,9 @@ def prefix_library_forms(torch, pos, delta, K):
     C = delta.shape[1]
     ok = (pos >= 0) & (pos < K)
     idx = pos[ok].long()
-    src = delta[ok]
     idx_rows = idx[None, :].expand(C, -1).contiguous()
-    src_rows = src.t().contiguous()
+    src_rows = delta[ok].t().contiguous()
     seg = torch.zeros((C, K), dtype=torch.int32, device="cuda")
-    seg_kc = torch.zeros((K, C), dtype=torch.int32, device="cuda")
     out = torch.empty((C, K), dtype=torch.int32, device="cuda")
 
     def rows_dim1():  # the first yardstick kept in the records: an int64 result
@@ -302,20 +293,15 @@ def prefix_library_forms(torch, pos, delta, K):
             torch.cumsum(row, 0, dtype=torch.int32, out=out[c])
         return out
 
-    def kc_dim0():
-        seg_kc.zero_()
-        seg_kc.index_put_((idx,), src)
-        return torch.cumsum(seg_kc, 0, dtype=torch.int32).t().contiguous()
-
     return {"scatter_+cumsum(dim=1) of (C, K), int64 out": rows_dim1,
-            "per channel: scatter_ + cumsum(dim=0, dtype=int32, out=row)": per_channel,
-            "(K, C) index_put_ + cumsum(dim=0, dtype=int32) + t().contiguous()": kc_dim0}
+            "per channel: scatter_ + cumsum(dim=0, dtype=int32, out=row)": per_channel}
 
 
-def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len, full=True):
+def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
     """The prefix fill vs its plain version, bitwise; its time, bound and host
-    cost, and with ``full`` the plain version's time, the PyTorch forms of
-    the same function and the device kernels one call launches."""
+    cost.  Returns that record and a function that adds to it the plain
+    version's time, the PyTorch forms of the same function and the device
+    kernels one call launches."""
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
 
     pos, delta = fill_inputs(torch, np.random.default_rng(seed), n, K, C, active, mean_len)
@@ -334,8 +320,10 @@ def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len, full
         "bound_ms": bytes_ms(n * 4 + n * C * 4 + C * K * 4),
         "host_us": host_us(torch, call), "max_abs_err": 0.0,
     }
-    text = ""
-    if full:
+    log(f"  ordered_prefix_fill {label}: n={n} K={K} C={C}  kernel {rec['ms']:.4f} ms  "
+        f"bound {rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call  bitwise equal")
+
+    def more():
         forms = prefix_library_forms(torch, pos, delta, K)
         for name, fn in forms.items():
             if not torch.equal(fn().to(torch.int32), ref):
@@ -343,15 +331,14 @@ def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len, full
         rec["plain_ms"] = timer.ms(lambda: of.prefix_fill_plain(pos, delta, K), 10)
         rec["library_forms_ms"] = {name: timer.ms(fn, 50) for name, fn in forms.items()}
         rec["split"] = kernel_split(torch, call, f"ordered_prefix_fill {label}")
-        text = (f"  plain {rec['plain_ms']:.4f}  library "
-                + "; ".join(f"{k} {v:.4f}" for k, v in rec["library_forms_ms"].items()))
-    log(f"  ordered_prefix_fill {label}: n={n} K={K} C={C}  kernel {rec['ms']:.4f} ms  "
-        f"bound {rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call{text}  bitwise equal")
-    return rec
+        log(f"  ordered_prefix_fill {label}: plain {rec['plain_ms']:.4f}  library "
+            + "; ".join(f"{k} {v:.4f}" for k, v in rec["library_forms_ms"].items()))
+
+    return rec, more
 
 
 def check_place(torch, timer, seed, n, Kp, tiles, mean_count, unit=128,
-                label="relayout place", full=True):
+                label="relayout place"):
     """Unit-aligned per-tile runs of positions, then Kp + row sentinels; the
     same records as check_fill_prefix, the library call being scatter_."""
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
@@ -381,41 +368,40 @@ def check_place(torch, timer, seed, n, Kp, tiles, mean_count, unit=128,
         "ms": timer.ms(call, 50), "bound_ms": bytes_ms(n * 8 + Kp * 4),
         "host_us": host_us(torch, call), "max_abs_err": 0.0,
     }
-    text = ""
-    if full:
+    log(f"  ordered_place_i32 {label}: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call  bitwise equal")
+
+    def more():
         idx, src = pos[ok].long(), vals[ok]
         out = torch.zeros(Kp, dtype=torch.int32, device="cuda")
         rec["plain_ms"] = timer.ms(lambda: of.place_plain(pos, vals, Kp), 10)
         rec["library_ms"] = timer.ms(lambda: out.zero_().scatter_(0, idx, src), 50)
         rec["split"] = kernel_split(torch, call, f"ordered_place_i32 {label}")
-        text = f"  plain {rec['plain_ms']:.4f}  scatter_ {rec['library_ms']:.4f}"
-    log(f"  ordered_place_i32 {label}: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  bound "
-        f"{rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call{text}  bitwise equal")
-    return rec
+        log(f"  ordered_place_i32 {label}: plain {rec['plain_ms']:.4f}  "
+            f"scatter_ {rec['library_ms']:.4f}")
+
+    return rec, more
 
 
 def render_fills(torch, timer, per_gauss, per_tile, Kp):
     """Phase 4's ordered-fill calls at the render-path shapes: the front fills
     (C = 4 over the gaussians), the relayout fills (C = 2 over the tiles) and
     the place, each gaussian and tile covering its mean length of positions.
-    Each call runs twice on the same inputs: the kernels alone first, then
-    with the plain version, the library forms and the profiler, so that no
-    kernel timing follows the library forms' long runs."""
-    calls = [
-        lambda full: check_fill_prefix(torch, timer, 0, "front fills", CAPACITY,
-                                       INSTANCE_CAPACITY, 4, N_GAUSS, per_gauss, full),
-        lambda full: check_fill_prefix(torch, timer, 1, "relayout fills", NTILES,
-                                       INSTANCE_CAPACITY, 2, int(NTILES * 0.97), per_tile, full),
-        lambda full: check_place(torch, timer, 2, INSTANCE_CAPACITY, Kp, NTILES, per_tile,
-                                 full=full),
-    ]
-    front, relay, place = recs = [call(False) for call in calls]
+    The kernels are checked and timed first, then the plain versions, the
+    library forms and the profiler, so that no kernel timing follows the
+    library forms' long runs."""
+    (front, more_front), (relay, more_relay), (place, more_place) = (
+        check_fill_prefix(torch, timer, 0, "front fills", CAPACITY, INSTANCE_CAPACITY, 4,
+                          N_GAUSS, per_gauss),
+        check_fill_prefix(torch, timer, 1, "relayout fills", NTILES, INSTANCE_CAPACITY, 2,
+                          int(NTILES * 0.97), per_tile),
+        check_place(torch, timer, 2, INSTANCE_CAPACITY, Kp, NTILES, per_tile))
     tiny = torch.zeros(1, device="cuda")
     front["launch_floor_ms"] = timer.ms(lambda: tiny.add_(1), 50)
     log(f"  launch floor (a one-element add_, timed the same way): "
         f"{front['launch_floor_ms']:.4f} ms")
-    for rec, call in zip(recs, calls):
-        rec.update({k: v for k, v in call(True).items() if k not in rec})
+    for more in (more_front, more_relay, more_place):
+        more()
     return front, relay, place
 
 
@@ -428,14 +414,13 @@ def train_fills(torch, timer, per_gauss, per_tile):
     kps = {p: kp_of(train_cfg(config, p), TRAIN_W, TRAIN_H) for p in (False, True)}
     return {
         "front": check_fill_prefix(torch, timer, 3, "train front fills", CAPACITY, TRAIN_ICAP,
-                                   4, N_GAUSS, per_gauss, full=False),
+                                   4, N_GAUSS, per_gauss)[0],
         "relay": check_fill_prefix(torch, timer, 4, "train relayout fills", TRAIN_TILES,
-                                   TRAIN_ICAP, 2, int(TRAIN_TILES * 0.97), per_tile,
-                                   full=False),
+                                   TRAIN_ICAP, 2, int(TRAIN_TILES * 0.97), per_tile)[0],
         "place_mixed": check_place(torch, timer, 5, TRAIN_ICAP, kps[False], TRAIN_TILES,
-                                   per_tile, 128, "train place, mixed", full=False),
+                                   per_tile, 128, "train place, mixed")[0],
         "place_packed": check_place(torch, timer, 6, TRAIN_ICAP, kps[True], TRAIN_TILES,
-                                    per_tile, PACKED_SUB, "train place, packed", full=False),
+                                    per_tile, PACKED_SUB, "train place, packed")[0],
     }
 
 
@@ -1262,27 +1247,6 @@ def packed_checks(torch, timer):
     return rec, fwd, bwd
 
 
-def fills_only(torch, card):
-    """``--fills``: the ordered-fill checks and timings of phases 4 and 7
-    alone, at the mean segment lengths the full run derives (FILL_MEANS), so
-    that two trees can be compared in one call.  Prints the two kernel
-    entries (launches not counted), never the ok line."""
-    from gs_deformable_tpu_torch import config
-
-    timer = Timer(torch)
-    (rg, rt), (tg, tt) = FILL_MEANS
-    log("ordered fills at the render-path shapes (phase 4)")
-    front, relay, place = render_fills(torch, timer, rg, rt, kp_of(render_cfg(config), W, H))
-    log("ordered fills at the train-path shapes (phase 7)")
-    train = train_fills(torch, timer, tg, tt)
-    none = {"launches": None}
-    entries = fill_entries(front, relay, place, train,
-                           {"ordered_prefix_fill": none, "ordered_place_i32": none})
-    print(json.dumps({"card": card, "fills": [{k: v for k, v in e.items() if "calls" not in k}
-                                              for e in entries]}))
-    return 0
-
-
 def main():
     import torch
 
@@ -1316,9 +1280,6 @@ def main():
     occupancy = comp_kernels.occupancy()
     log(f"  blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 "
         f"threads a block): {occupancy}")
-
-    if FILLS_ONLY:
-        return fills_only(torch, card)
 
     log("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
     cfg = render_cfg(config)

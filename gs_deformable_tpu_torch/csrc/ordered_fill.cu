@@ -63,7 +63,11 @@
 // in the low half, written and read whole (relaxed, GPU scope), so a word
 // is valid for a launch exactly when it carries that launch's epoch.  The
 // wrapper passes a new epoch to every launch (never 0, the value of a
-// freshly zeroed buffer), so no launch needs the words cleared.  The block
+// freshly zeroed buffer), so no launch needs the words cleared.  That holds
+// only while every launch is issued from the host: a CUDA graph would
+// replay one epoch, and a block would take a predecessor's words from the
+// replay before as this launch's, a wrong carry with no error.  So the call
+// must not be captured into a graph, and the wrapper raises if it is.  The block
 // that takes the launch's last ticket resets the counter to 0: every other
 // ticket of the launch is taken by then, and the next launch on the stream
 // starts after this one ends.  A launch refused at the call never touches

@@ -12,7 +12,9 @@ Both carry int32 end to end, so they are exact: the JAX version's fp32
 lanes hold the same integers (every value there is below 2^24).  Each call
 on the card is one kernel launch.  The prefix fill's launches share a small
 status buffer per device and stream, kept here with the epoch of its last
-launch (see the head note of the CUDA source).
+launch (see the head note of the CUDA source).  The epoch is a kernel
+argument that a CUDA graph would freeze, so the prefix fill refuses to be
+captured.
 """
 
 from __future__ import annotations
@@ -82,6 +84,9 @@ def ordered_prefix_fill(pos: torch.Tensor, delta: torch.Tensor, K: int) -> torch
         return prefix_fill_plain(pos, delta, K)
     if pos.device.type != "cuda" or delta.device != pos.device:
         raise ValueError(f"pos/delta on {pos.device}/{delta.device}")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("ordered_prefix_fill cannot be captured into a CUDA graph: each "
+                           "launch needs a new epoch, which a replay would repeat")
     lib = _lib()
     pos = pos.contiguous()
     delta = delta.contiguous()

@@ -83,7 +83,7 @@ def test_place_kernel_bitwise(cuda, seed, n, K, frac):
 
 
 CARD_PREFIX_CASES = [*fill_cases.PREFIX_CASES, ("random", (1 << 21) + 12_347, 4),
-                     ("dense", (1 << 21) + 2, 2)]
+                     ("dense", (1 << 21) + 2, 2), ("random", (1 << 21) + 5, 8)]
 CARD_PLACE_CASES = [*fill_cases.PLACE_CASES, ("dense", (1 << 21) + 3)]
 
 
@@ -137,6 +137,26 @@ def test_fill_launches_back_to_back(cuda):
     for (p, d, K), (fill, placed) in zip(calls, outs):
         assert torch.equal(fill.cpu(), of.prefix_fill_plain(p.cpu(), d.cpu(), K))
         assert torch.equal(placed.cpu(), of.place_plain(p.cpu(), d[:, 0].cpu(), K))
+
+
+def test_prefix_fill_refuses_graph_capture(cuda):
+    """A CUDA graph would replay one launch's epoch, so the look-back could
+    take the words of the replay before as valid: capturing the prefix fill
+    raises, launches nothing, and leaves the stream usable."""
+    K = 3 * fill_cases.BLOCK + 5
+    pos = torch.from_numpy(fill_cases.positions("random", K)).to(cuda)
+    delta = torch.from_numpy(fill_cases.values(pos.shape[0], 4, 1 << 20)).to(cuda)
+    ref = of.prefix_fill_plain(pos.cpu(), delta.cpu(), K)
+    of.ordered_prefix_fill(pos, delta, K)
+    torch.cuda.synchronize()
+    before = launch_counts()["ordered_prefix_fill"]
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            of.ordered_prefix_fill(pos, delta, K)
+    assert launch_counts()["ordered_prefix_fill"] == before
+    got = of.ordered_prefix_fill(pos, delta, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
 
 
 def _screen(seed, n, W, H, opaque, device):
