@@ -97,7 +97,30 @@ Phases (any failure raises and the script exits non-zero):
    (e) sort_mode "packed": the card's 1080p screen-space arrays binned on
    the card (kernels) and the CPU (plain versions), every Binning field
    bitwise equal, the instances whose in-tile order differs from "exact"
-   counted, and one frame rendered through it (finite, not constant).
+   counted, and one frame rendered through it (finite, not constant);
+11. scene to model, at a D-NeRF scene's real size: a temporary directory
+   gets 50 train and 20 test 800x800 RGBA frames with times in [0, 1] and
+   transforms_{train,test}.json, the ground truths rendered by the port
+   from phase 3's scene and net; ``data.scene.Scene(eval=True)`` loads it
+   with the readers' default 100k random points; ``init_from_points`` at
+   capacity 262,144 (train.py:413-417's rule); 20 train steps at the
+   default learning rates at iterations 581-600 over 10 views twice
+   (the second pass's mean loss must be lower), then at iteration 600,
+   the trainer's first densification, ``make_densify_step`` and
+   ``make_opacity_reset``; ``grow_capacity`` to 524,288, the step
+   rebuilt, 5 more steps; ``eval_sweep`` over the 20 test views in batches
+   of 10; ``save_ply`` (with the net) and ``save_checkpoint``, then
+   ``load_checkpoint`` into a fresh state.  Checks: the k-NN of the cloud
+   on the card against its CPU plain run (rtol 1e-4, atol 1e-6 x
+   max|x|^2); ``densify_and_prune`` on the card against its CPU run on the
+   same state and normals (alive, counts and moments equal, floats at
+   rtol 1e-6 / atol 1e-6); the render after growth against the render
+   before it (rtol 1e-4 / atol 2e-5); the reloaded state's render
+   bitwise equal to the saved state's, past the warmup so the net runs; counters zeroed before the steps
+   and read after the eval sweep, each kernel launched once per step,
+   eval view and growth-check render (the backward once per step).
+   Prints each stage's time, the DensifyInfo counts, alive before and
+   after, and each test view's PSNR.
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
@@ -151,6 +174,16 @@ GRAD_FIELDS = 9  # gradient rows the backward writes: x, y, conic a/b/c, opacity
 # but d_opacity carries that alpha, so one flip moves an element by a few
 # 1/255 of its leaf's max |g| (up to 0.0128 seen on an H100).
 GRAD_KNIFE = 0.025
+# Phase 11: a D-NeRF scene at its real size (800x800 RGBA, 50 train and 20
+# test frames), the readers' default 100k random points, the trainer's
+# capacity rule (train.py:413-417), the steps up to the trainer's first
+# densification (iteration 600: past densify_from_iter 500, a multiple of
+# the interval 100, inside the 3000-iteration deformation warmup, as a run
+# from scratch is there), then densify, reset, growth, eval and save.
+SCENE_SIZE, SCENE_TRAIN, SCENE_TEST = 800, 50, 20
+SCENE_ITER0 = 581
+SCENE_STEPS, SCENE_GROWN_STEPS, SCENE_VIEWS = 20, 5, 10
+EVAL_BATCH = 10
 
 
 def log(*a):
@@ -1247,6 +1280,283 @@ def packed_checks(torch, timer):
     return rec, fwd, bwd
 
 
+def scene_cameras(n, seed):
+    """OpenGL camera-to-world matrices on an arc 10 from (0, 0, 6), looking
+    at it: the phase-3 scene and the readers' [-1.3, 1.3]^3 cloud in view,
+    the cloud's centre 4 away as a D-NeRF orbit's."""
+    rng = np.random.default_rng(seed)
+    target = np.array([0.0, 0.0, 6.0])
+    out = []
+    for a, h in zip(np.linspace(-0.25, 0.25, n), rng.uniform(-0.3, 0.3, n)):
+        eye = target + 10.0 * np.array([np.sin(a), h / 10.0, -np.cos(a)])
+        fwd = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], 1)  # x right, y down, z fwd
+        c2w[:3, 3] = eye
+        c2w[:3, 1:3] *= -1  # COLMAP -> OpenGL, undone by the reader
+        out.append(c2w)
+    return out
+
+
+def write_scene(torch, root):
+    """Phase 11 (1): the D-NeRF layout with ground truths rendered by the port
+    from phase 3's scene and net at each frame's camera and time."""
+    from PIL import Image
+
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.data.cameras import CameraInfo, camera_arrays, load_camera
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.training import make_eval_render
+
+    cfg = render_cfg(config)
+    state = scene(torch, N_GAUSS, CAPACITY)
+    net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
+    fov = 1.0
+    tan = float(np.tan(fov / 2))
+    run = make_eval_render(cfg, width=SCENE_SIZE, height=SCENE_SIZE, tan_fovx=tan,
+                           tan_fovy=tan, active_sh_degree=3)
+    bg = torch.zeros(3, device="cuda")
+    for split, n, seed in (("train", SCENE_TRAIN, 1), ("test", SCENE_TEST, 2)):
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i, c2w in enumerate(scene_cameras(n, seed)):
+            t = i / (n - 1)
+            w2c = np.linalg.inv(c2w * np.array([1, -1, -1, 1]))
+            info = CameraInfo(uid=i, R=w2c[:3, :3].T, T=w2c[:3, 3], fovx=fov, fovy=fov,
+                              image=None, image_path="", image_name="", width=SCENE_SIZE,
+                              height=SCENE_SIZE, time=t)
+            cam = camera_arrays(load_camera(info, i, 1), device="cuda")
+            img = torch.clamp(run(state, net, cam, bg, ITERATION), 0.0, 1.0)
+            rgb = (img.permute(1, 2, 0).cpu().numpy() * 255).astype(np.uint8)
+            rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
+            Image.fromarray(rgba, "RGBA").save(os.path.join(root, split, f"r_{i:03d}.png"))
+            frames.append({"file_path": f"./{split}/r_{i:03d}", "time": t,
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": fov, "frames": frames}, f)
+
+
+def check_densify_card_vs_cpu(torch, ts, normals, kw):
+    """densify_and_prune on the card and on the CPU from the same state and
+    normals: alive and the counts equal, every float at rtol 1e-6 / atol 1e-6
+    (the split children's products; copies agree to the bit)."""
+    from gs_deformable_tpu_torch.models.gaussians import PARAM_GROUPS, densify_and_prune
+
+    def run(dev):
+        g = ts.gaussians
+        g = type(g)(**{f: getattr(g, f).to(dev) for f in g.__dataclass_fields__})
+        mu = {k: ts.adam.mu[k].to(dev) for k in PARAM_GROUPS}
+        nu = {k: ts.adam.nu[k].to(dev) for k in PARAM_GROUPS}
+        return densify_and_prune(g, mu, nu, normals.to(dev), **kw)
+
+    card, cpu = run("cuda"), run("cpu")
+    if [int(x) for x in card[3]] != [int(x) for x in cpu[3]]:
+        raise AssertionError(f"densify counts card {card[3]} vs CPU {cpu[3]}")
+    worst = 0.0
+    for (name, a), b in zip([(f, getattr(card[0], f)) for f in card[0].__dataclass_fields__],
+                            [getattr(cpu[0], f) for f in cpu[0].__dataclass_fields__]):
+        a = a.cpu()
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                raise AssertionError(f"densify {name} differs card vs CPU")
+            continue
+        if not torch.allclose(a, b, rtol=1e-6, atol=1e-6):
+            raise AssertionError(f"densify {name}: card vs CPU max diff "
+                                 f"{float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    for side in (1, 2):
+        for k in PARAM_GROUPS:
+            if not torch.equal(card[side][k].cpu(), cpu[side][k]):
+                raise AssertionError(f"densify moments of {k} differ card vs CPU")
+    return {k: int(v) for k, v in cpu[3]._asdict().items()}, worst
+
+
+def scene_phase(torch):
+    """Phase 11: scene directory -> Scene -> init_from_points -> train steps
+    with densify, opacity reset and growth -> eval sweep -> PLY, nets and
+    checkpoint -> reload and render."""
+    import random
+    import tempfile
+
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.data.cameras import camera_arrays
+    from gs_deformable_tpu_torch.data.scene import Scene
+    from gs_deformable_tpu_torch.io import checkpoint, model_ply
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.models.gaussians import init_from_points
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from gs_deformable_tpu_torch.ops.knn import mean_sq_dist_knn3
+    from gs_deformable_tpu_torch import training
+
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    cfg = config.Config()
+    o = cfg.opt
+    with tempfile.TemporaryDirectory() as root:
+        src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+        timed("scene_write_ms", lambda: write_scene(torch, src))
+        sc = timed("scene_load_ms", lambda: Scene(
+            src, model, eval=True, rng=np.random.RandomState(0), shuffle_rng=random.Random(0)))
+        train_cams, test_cams = sc.get_train_cameras(), sc.get_test_cameras()
+        if (len(train_cams), len(test_cams)) != (SCENE_TRAIN, SCENE_TEST):
+            raise AssertionError(f"scene has {len(train_cams)} / {len(test_cams)} cameras")
+        pcd = sc.scene_info.point_cloud
+        n = len(pcd.points)
+        cap = 1 << (2 * n - 1).bit_length()  # train.py:413-417: 2n rounded up to a power of 2
+        log(f"  wrote and loaded {SCENE_TRAIN} + {SCENE_TEST} frames of {SCENE_SIZE}x"
+            f"{SCENE_SIZE} RGBA; {n} random initial points, capacity {cap}, extent "
+            f"{sc.cameras_extent:.4f}")
+
+        pts = torch.from_numpy(pcd.points)
+        dist = timed("knn_ms", lambda: mean_sq_dist_knn3(pts.cuda()))
+        t0 = time.perf_counter()
+        dist_cpu = mean_sq_dist_knn3(pts)
+        knn_cpu_s = time.perf_counter() - t0
+        atol = 1e-6 * float(pts.abs().max()) ** 2
+        knn_err = float((dist.cpu() - dist_cpu).abs().max())
+        if not torch.allclose(dist.cpu(), dist_cpu, rtol=1e-4, atol=atol):
+            raise AssertionError(f"k-NN card vs CPU: max diff {knn_err}")
+        state = timed("init_ms", lambda: init_from_points(pcd.points, pcd.colors, cap,
+                                                          cfg.model.sh_degree))
+        net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
+        ts = training.init_train_state(state, net, seed=0)
+        log(f"  k-NN of the {n}-point cloud: card {times['knn_ms']:.1f} ms, CPU plain run "
+            f"{knn_cpu_s:.1f} s, max abs diff {knn_err:.3g} (bar rtol 1e-4, atol {atol:.3g})")
+
+        cam0 = train_cams[0]
+        kw = dict(width=cam0.width, height=cam0.height, tan_fovx=cam0.tan_fovx,
+                  tan_fovy=cam0.tan_fovy, active_sh_degree=cfg.model.sh_degree)
+        bg = torch.zeros(3, device="cuda")
+        gts = {id(c): torch.from_numpy(c.image).cuda() for c in train_cams + test_cams}
+        reset_launch_counts()
+
+        def steps(step, ts, it0, count):
+            losses, ms, req = [], [], []
+            for i in range(count):
+                c = train_cams[i % SCENE_VIEWS]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts, m = step(ts, camera_arrays(c), gts[id(c)], bg, it0 + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                req.append(int(m["required_instances"]))
+                if req[-1] > cfg.raster.instance_capacity:
+                    raise AssertionError(f"step {it0 + i} overflowed: {req}")
+            return ts, losses, ms, req
+
+        step = training.make_train_step(cfg, spatial_lr_scale=sc.cameras_extent, **kw)
+        ts, losses, step_ms, reqs = steps(step, ts, SCENE_ITER0, SCENE_STEPS)
+        first, last = np.mean(losses[:SCENE_VIEWS]), np.mean(losses[SCENE_VIEWS:])
+        if not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"loss did not fall: {losses}")
+        it = SCENE_ITER0 + SCENE_STEPS - 1  # the last step's iteration, 600
+        alive_before = int(ts.gaussians.num_alive)
+
+        # densify as train.py:900-912 at this iteration
+        dkw = dict(grad_threshold=o.densify_grad_threshold, min_opacity=o.min_opacity,
+                   extent=sc.cameras_extent, percent_dense=o.percent_dense,
+                   use_screen_prune=it > o.opacity_reset_interval,
+                   max_screen_size=float(o.max_screen_size))
+        normals = torch.randn((cap, 2, 3), generator=ts.generator, device="cuda")
+        cpu_info, dens_err = check_densify_card_vs_cpu(torch, ts, normals, dkw)
+        densify = training.make_densify_step(cfg, extent=sc.cameras_extent,
+                                             use_screen_prune=dkw["use_screen_prune"])
+        ts, info = timed("densify_ms", lambda: densify(ts, o.densify_grad_threshold,
+                                                       o.min_opacity, normals=normals))
+        info = {k: int(v) for k, v in info.items()}
+        if info != cpu_info:
+            raise AssertionError(f"densify step {info} vs its CPU run {cpu_info}")
+        ts = timed("reset_ms", lambda: training.make_opacity_reset(cfg)(ts))
+        alive_after = int(ts.gaussians.num_alive)
+        log(f"  DensifyInfo {info}; alive {alive_before} -> {alive_after}; card vs CPU "
+            f"densify: alive and counts equal, floats max abs diff {dens_err:.3g}")
+
+        view = camera_arrays(test_cams[0])
+        before = training.make_eval_render(cfg, **kw)(ts.gaussians, ts.net, view, bg, it)
+        ts = timed("grow_ms", lambda: training.grow_capacity(ts, 2 * cap))
+        step = training.make_train_step(cfg, spatial_lr_scale=sc.cameras_extent, **kw)
+        after = training.make_eval_render(cfg, **kw)(ts.gaussians, ts.net, view, bg, it)
+        grow_err = float((after - before).abs().max())
+        if not torch.allclose(after, before, rtol=1e-4, atol=2e-5):
+            raise AssertionError(f"render after growth differs: max diff {grow_err}")
+        ts, grown_losses, grown_ms, grown_reqs = steps(step, ts, it + 1, SCENE_GROWN_STEPS)
+        if not np.isfinite(grown_losses).all():
+            raise AssertionError(f"grown steps: loss not finite {grown_losses}")
+        it += SCENE_GROWN_STEPS
+
+        def make_batch(c):
+            return training.make_eval_render_batch(
+                cfg, width=c.width, height=c.height, tan_fovx=c.tan_fovx, tan_fovy=c.tan_fovy,
+                active_sh_degree=cfg.model.sh_degree)
+
+        res = timed("eval_ms", lambda: training.eval_sweep(
+            make_batch, ts, test_cams, camera_arrays, lambda c: gts[id(c)], bg, it,
+            batch=EVAL_BATCH))
+        psnrs = [r[2] for r in res]
+        if not all(np.isfinite(r[0]).all() and np.isfinite(r[1:]).all() for r in res):
+            raise AssertionError("eval sweep gave non-finite images or metrics")
+        counts = launch_counts()
+
+        pc_dir = sc.point_cloud_dir(it)
+        ck_path = os.path.join(model, "ckpt_save", f"chkpnt_{it}.npz")
+
+        def save():
+            model_ply.save_ply(pc_dir, ts.gaussians, nets={"offset_model": ts.net.param_tree()})
+            checkpoint.save_checkpoint(ck_path, ts, it)
+
+        timed("save_ms", save)
+        fresh = training.grow_capacity(training.init_train_state(
+            init_from_points(pcd.points, pcd.colors, cap, cfg.model.sh_degree),
+            OffsetNet(init_offset_params(1, cfg.deform), cfg.deform, device="cuda"), seed=1),
+            2 * cap)
+        loaded, loaded_it = timed("load_ms", lambda: checkpoint.load_checkpoint(ck_path, fresh))
+        render = training.make_eval_render(cfg, **kw)
+        past_warmup = cfg.deform.warmup_iters  # so the reloaded net runs too
+        saved_img = render(ts.gaussians, ts.net, view, bg, past_warmup)
+        loaded_img = render(loaded.gaussians, loaded.net, view, bg, past_warmup)
+        if loaded_it != it or not torch.equal(saved_img, loaded_img):
+            raise AssertionError("the reloaded checkpoint renders another image")
+        files = sorted(os.listdir(pc_dir))
+
+    want = {"composite_forward": SCENE_STEPS + SCENE_GROWN_STEPS + SCENE_TEST + 2,
+            "composite_backward": SCENE_STEPS + SCENE_GROWN_STEPS}
+    want["ordered_prefix_fill"] = 2 * want["composite_forward"]
+    want["ordered_place_i32"] = want["composite_forward"]
+    if counts != want:
+        raise AssertionError(f"scene path launches {counts}, expected {want}")
+    times["ms_per_step"] = float(np.median(step_ms))
+    times["ms_per_step_grown"] = float(np.median(grown_ms))
+    times["eval_ms_per_view"] = times["eval_ms"] / SCENE_TEST
+    log(f"  losses {[round(x, 5) for x in losses]} (first {SCENE_VIEWS} views, then again: "
+        f"mean {first:.5f} -> {last:.5f}); grown steps {[round(x, 5) for x in grown_losses]}")
+    log(f"  required instances {reqs} then {grown_reqs} / {cfg.raster.instance_capacity}")
+    log(f"  render after growth to {2 * cap} vs before: max abs diff {grow_err:.3g}")
+    log(f"  eval PSNR per test view: {[round(p, 3) for p in psnrs]}")
+    log(f"  saved {files} and {os.path.basename(ck_path)}; the reloaded checkpoint renders "
+        f"bitwise the same image at iteration {past_warmup} (the net runs)")
+    log(f"  launches over the path (steps, eval and the growth check): {counts}")
+    log("  stage times (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return {"frames": [SCENE_TRAIN, SCENE_TEST], "size": SCENE_SIZE, "points": n,
+            "capacity": cap, "grown_capacity": 2 * cap, "extent": sc.cameras_extent,
+            "knn_cpu_s": knn_cpu_s, "knn_max_abs_err": knn_err, "times_ms": times,
+            "step_ms": step_ms, "grown_step_ms": grown_ms, "losses": losses,
+            "required_instances": reqs + grown_reqs,
+            "grown_losses": grown_losses, "densify": info, "densify_card_vs_cpu_err": dens_err,
+            "alive_before": alive_before, "alive_after": alive_after,
+            "growth_render_err": grow_err, "psnr": psnrs, "launches": counts}
+
+
 def main():
     import torch
 
@@ -1369,6 +1679,10 @@ def main():
     log("phase 10: packed vs mixed, rows 5 and 6 vs their plain versions, packed sort")
     packed, pfwd, pbwd = packed_checks(torch, timer)
 
+    log(f"phase 11: scene to model: a {SCENE_SIZE}x{SCENE_SIZE} D-NeRF scene on disk, "
+        f"Scene, init_from_points, train with densify, reset and growth, eval, save, reload")
+    scene_rec = scene_phase(torch)
+
     def total(key, recs):
         return sum(r[key] for r in recs)
 
@@ -1423,7 +1737,7 @@ def main():
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
-        "kernels": kernels, "breakdown": breakdown,
+        "scene": scene_rec, "kernels": kernels, "breakdown": breakdown,
         "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)

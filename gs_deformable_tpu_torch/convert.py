@@ -19,7 +19,7 @@ from . import device as device_rules
 from .config import Config
 from .models.deform import OffsetNet
 from .models.gaussians import AdamState, GaussianState, tree_map
-from .training import TrainState
+from .training import TrainState, make_generator
 
 
 def from_jax_numpy(gaussian_arrays: Dict[str, np.ndarray], deform_params: Optional[dict],
@@ -38,12 +38,13 @@ def from_jax_numpy(gaussian_arrays: Dict[str, np.ndarray], deform_params: Option
 
 def train_state_from_jax_numpy(gaussian_arrays: Dict[str, np.ndarray],
                                deform_params: Optional[dict], adam: Dict, cfg: Config,
-                               device="cuda") -> TrainState:
+                               device="cuda", seed: int = 0) -> TrainState:
     """A JAX ``TrainState`` as numpy leaves -> the port's ``TrainState``.
 
     ``adam`` is ``{"mu": {group: array or net subtree}, "nu": {...}, "step":
     int}`` as JAX's ``AdamState``; a ``"offset_model"`` group is kept only
-    when ``deform_params`` is given.
+    when ``deform_params`` is given.  The JAX PRNG key has no torch
+    counterpart: the state's generator is seeded with ``seed``.
     """
     dev = device_rules.resolve(device)
     state, net = from_jax_numpy(gaussian_arrays, deform_params, cfg, device=dev)
@@ -54,7 +55,8 @@ def train_state_from_jax_numpy(gaussian_arrays: Dict[str, np.ndarray],
                 for k, v in tree.items() if k in keep}
 
     step = torch.tensor(int(np.asarray(adam["step"])), dtype=torch.int32, device=dev)
-    return TrainState(state, net, AdamState(tensors(adam["mu"]), tensors(adam["nu"]), step))
+    return TrainState(state, net, AdamState(tensors(adam["mu"]), tensors(adam["nu"]), step),
+                      make_generator(seed, dev))
 
 
 def train_state_to_numpy(ts: TrainState) -> Dict:

@@ -1,23 +1,87 @@
-"""Load a trained model saved by the JAX package (port of ``io/model_ply.py``).
+"""Save and load a trained model (port of ``io/model_ply.py``).
 
 PLY schema: x,y,z,nx,ny,nz,f_dc_0..2,f_rest_0..(3(K-1)-1),opacity,
 scale_0..2,rot_0..3 with channel-major features.  The nets sit beside the
 PLY as ``<name>.npz`` with keys like ``['layers']/[0]/['w']`` (the JAX
-pytree paths).
+pytree paths), so a file written by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import device as device_rules
 from ..config import DeformConfig
 from ..models.deform import OffsetNet
 from ..models.gaussians import GaussianState
-from .ply import read_ply
+from .ply import read_ply, write_ply
+
+NET_FILES = ("offset_model", "offset_model_rot", "offset_model_scaling", "opacity_mask",
+             "shs_model")
+
+
+def map_tree(tree: Any, fn: Callable[[str, Any], Any], prefix: str = "") -> Any:
+    """``fn(key, leaf)`` over the leaves of a dict/list tree, ``key`` the JAX
+    path string: ``['name']`` for a dict key, ``[i]`` for a list index,
+    joined by ``/`` after ``prefix``."""
+    sep = "/" if prefix else ""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn, f"{prefix}{sep}['{k}']") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn, f"{prefix}{sep}[{i}]") for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_net(path: str, params: Any) -> None:
+    """A net's ``{"layers", "heads"}`` tree (tensors or arrays) as an .npz."""
+    flat = {}
+    map_tree(params, lambda k, v: flat.__setitem__(k, to_numpy(v)))
+    np.savez(path, **flat)
+
+
+def save_ply(directory: str, state: GaussianState, nets: Optional[Dict[str, Any]] = None, *,
+             xyz_override: Optional[torch.Tensor] = None,
+             filename: str = "point_cloud.ply") -> str:
+    """The alive rows of ``state`` as ``directory/filename`` and each net of
+    ``nets`` named in ``NET_FILES`` as ``directory/<name>.npz``; returns the
+    PLY's path.  ``xyz_override`` replaces the means (a deformed frame)."""
+    os.makedirs(directory, exist_ok=True)
+    alive = to_numpy(state.alive)
+    xyz = to_numpy(state.xyz if xyz_override is None else xyz_override)[alive]
+    n = xyz.shape[0]
+    # channel-major: (N, K, 3) -> (N, 3, K) -> (N, 3K)
+    dc = np.transpose(to_numpy(state.f_dc)[alive], (0, 2, 1)).reshape(n, -1)
+    rest = np.transpose(to_numpy(state.f_rest)[alive], (0, 2, 1)).reshape(n, -1)
+    opacity = to_numpy(state.opacity)[alive]
+    scaling = to_numpy(state.scaling)[alive]
+    rotation = to_numpy(state.rotation)[alive]
+
+    names = ["x", "y", "z", "nx", "ny", "nz"]
+    cols = [xyz[:, 0], xyz[:, 1], xyz[:, 2]] + [np.zeros(n, np.float32)] * 3
+    for prefix, block in (("f_dc", dc), ("f_rest", rest)):
+        names += [f"{prefix}_{i}" for i in range(block.shape[1])]
+        cols += [block[:, i] for i in range(block.shape[1])]
+    names.append("opacity")
+    cols.append(opacity[:, 0])
+    for prefix, block in (("scale", scaling), ("rot", rotation)):
+        names += [f"{prefix}_{i}" for i in range(block.shape[1])]
+        cols += [block[:, i] for i in range(block.shape[1])]
+
+    path = os.path.join(directory, filename)
+    write_ply(path, names, [np.ascontiguousarray(c, np.float32) for c in cols])
+    for name in NET_FILES:
+        if nets and nets.get(name) is not None:
+            save_net(os.path.join(directory, f"{name}.npz"), nets[name])
+    return path
 
 def _sorted_names(d, prefix):
     return sorted((k for k in d if k.startswith(prefix)), key=lambda s: int(s.split("_")[-1]))

@@ -71,3 +71,8 @@ def fov2focal(fov: float, pixels: float) -> float:
 
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * np.arctan(pixels / (2 * focal))
+
+
+def camera_center_from_view(world_view: np.ndarray) -> np.ndarray:
+    """Row 3 of the inverse of the row-vector view matrix: the camera centre."""
+    return np.linalg.inv(world_view)[3, :3]

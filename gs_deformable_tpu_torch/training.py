@@ -1,9 +1,11 @@
-"""Training-side entry points: the train step, the chunked train loop and
-the eval render.
+"""Training-side entry points: the train step, the chunked train loop,
+densify/prune, the opacity reset, capacity growth and the eval renders.
 
 Port of ``gs_deformable_tpu/training.py`` (``TrainState``,
 ``init_train_state``, ``learning_rates``, ``make_train_step``,
-``make_chunk_step``, ``make_eval_render``).  One step runs deformation MLP -> activations ->
+``make_chunk_step``, ``make_densify_step``, ``make_opacity_reset``,
+``make_eval_render``, ``make_eval_render_batch``, ``stack_camera_arrays``,
+``run_eval_batches``, ``eval_sweep``, ``grow_capacity``).  One step runs deformation MLP -> activations ->
 EWA preprocess -> SH -> tiled rasterize (CUDA composite forward) ->
 L1 + SSIM + offset-norm loss -> backward (CUDA composite backward, the
 gather's per-gaussian segment sum, autograd for the rest) ->
@@ -18,19 +20,23 @@ with the offset-norm mean over alive gaussians.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import device as device_rules
 from .config import Config, check_supported, layout_unit
 from .models.deform import OffsetNet
 from .models.gaussians import (
+    PARAM_GROUPS,
     AdamState,
     GaussianState,
     adam_init,
     adam_step,
     add_densification_stats,
+    densify_and_prune,
+    reset_opacity,
     tree_leaves,
     tree_map,
 )
@@ -45,6 +51,13 @@ class TrainState:
     gaussians: GaussianState
     net: Optional[OffsetNet]  # None for deform_mode="none"
     adam: AdamState
+    # Draws the split children's offsets (make_densify_step); on the
+    # gaussians' device.  The JAX state's PRNG key has no counterpart.
+    generator: torch.Generator
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _params(state: GaussianState, net: Optional[OffsetNet]) -> Dict:
@@ -54,13 +67,16 @@ def _params(state: GaussianState, net: Optional[OffsetNet]) -> Dict:
     return params
 
 
-def init_train_state(state: GaussianState, net: Optional[OffsetNet]) -> TrainState:
-    """Zero Adam moments for the six groups and, with a net, ``"offset_model"``.
+def init_train_state(state: GaussianState, net: Optional[OffsetNet],
+                     seed: int = 0) -> TrainState:
+    """Zero Adam moments for the six groups and, with a net, ``"offset_model"``;
+    a generator seeded with ``seed`` on the state's device.
 
     The JAX version draws the net from ``jax.random``; here it comes from
     ``models.deform.init_offset_params(seed)`` or from ``convert``.
     """
-    return TrainState(state, net, adam_init(_params(state, net)))
+    return TrainState(state, net, adam_init(_params(state, net)),
+                      make_generator(seed, state.xyz.device))
 
 
 def learning_rates(iteration, cfg: Config, spatial_lr_scale: float,
@@ -167,7 +183,7 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
                 "required_aligned": out.required_aligned,
                 "n_alive": gstate.num_alive,
             }
-        return TrainState(gstate, ts.net, new_adam), metrics
+        return dataclasses.replace(ts, gaussians=gstate, adam=new_adam), metrics
 
     return step
 
@@ -247,3 +263,153 @@ def make_eval_render(cfg: Config, *, width: int, height: int, tan_fovx: float,
         return out.image
 
     return run
+
+
+def make_densify_step(cfg: Config, extent: float, use_screen_prune: bool, device="cuda"):
+    """``run(ts, grad_threshold, min_opacity, normals=None) -> (ts, info)``:
+    ``models.gaussians.densify_and_prune`` on the six groups' Adam moments
+    (train.py:643-645 of the JAX package), ``info`` the ``DensifyInfo``
+    counts as a dict of 0-d tensors.
+
+    The split children's (P, 2, 3) standard normals are drawn from
+    ``ts.generator`` unless ``normals`` is given (the tests pass the JAX
+    step's own draw).  ``cfg.opt.densify_offset_gate > 0`` also limits
+    clone and split to rows whose latest offset norm reaches it.  A
+    ``TrainState`` holds no capacity-sized buffer of the step, so the same
+    function serves a state after ``grow_capacity``.
+    """
+    dev = device_rules.resolve(device)
+
+    def run(ts: TrainState, grad_threshold, min_opacity,
+            normals: Optional[torch.Tensor] = None):
+        g = ts.gaussians
+        device_rules.check_on("ts.gaussians.xyz", g.xyz, dev)
+        if normals is None:
+            normals = torch.randn((g.capacity, 2, 3), generator=ts.generator, device=dev)
+        offset_mask = None
+        if cfg.opt.densify_offset_gate > 0.0:
+            offset_mask = g.last_offset_norm >= cfg.opt.densify_offset_gate
+        gstate, mu, nu, info = densify_and_prune(
+            g, {k: ts.adam.mu[k] for k in PARAM_GROUPS},
+            {k: ts.adam.nu[k] for k in PARAM_GROUPS}, normals,
+            grad_threshold=grad_threshold, min_opacity=min_opacity, extent=extent,
+            percent_dense=cfg.opt.percent_dense, use_screen_prune=use_screen_prune,
+            max_screen_size=float(cfg.opt.max_screen_size), offset_mask=offset_mask)
+        adam = dataclasses.replace(ts.adam, mu={**ts.adam.mu, **mu}, nu={**ts.adam.nu, **nu})
+        return dataclasses.replace(ts, gaussians=gstate, adam=adam), info._asdict()
+
+    return run
+
+
+def make_opacity_reset(cfg: Config):
+    """``run(ts) -> ts`` with ``models.gaussians.reset_opacity`` applied."""
+
+    def run(ts: TrainState) -> TrainState:
+        gstate, mu, nu = reset_opacity(ts.gaussians, ts.adam.mu, ts.adam.nu)
+        return dataclasses.replace(ts, gaussians=gstate,
+                                   adam=dataclasses.replace(ts.adam, mu=mu, nu=nu))
+
+    return run
+
+
+def make_eval_render_batch(cfg: Config, *, width: int, height: int, tan_fovx: float,
+                           tan_fovy: float, active_sh_degree: int, device="cuda"):
+    """No-grad eval of a stack of cameras: ``run(ts, cams, gts, bg, iteration)
+    -> (images, l1, psnr, ssim)``, each with a leading batch axis.
+
+    ``cams`` holds each ``CameraArrays`` field stacked on a leading axis
+    (``stack_camera_arrays``) and ``gts`` is (B, 3, H, W); images and
+    targets are clipped to [0, 1] before the metrics.  Nothing waits for
+    the card.
+    """
+    render_one = make_eval_render(cfg, width=width, height=height, tan_fovx=tan_fovx,
+                                  tan_fovy=tan_fovy, active_sh_degree=active_sh_degree,
+                                  device=device)
+
+    def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
+            iteration: int):
+        out = []
+        with torch.no_grad():
+            for i in range(gts.shape[0]):
+                img = torch.clamp(render_one(ts.gaussians, ts.net,
+                                             CameraArrays(*(x[i] for x in cams)), bg, iteration),
+                                  0.0, 1.0)
+                gt = torch.clamp(gts[i], 0.0, 1.0)
+                out.append((img, (img - gt).abs().mean(), psnr(img[None], gt[None]).mean(),
+                            ssim(img, gt)))
+        return tuple(torch.stack(x) for x in zip(*out))
+
+    return run
+
+
+def stack_camera_arrays(cam_list: Sequence[CameraArrays]) -> CameraArrays:
+    """Per-camera ``CameraArrays`` stacked on a leading batch axis."""
+    return CameraArrays(*(torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in xs])
+                          for xs in zip(*cam_list)))
+
+
+def run_eval_batches(eval_batch_fn, ts: TrainState, cam_arr_list: Sequence[CameraArrays],
+                     gt_list: Sequence, bg: torch.Tensor, iteration: int,
+                     batch: int) -> List[Tuple[np.ndarray, float, float, float]]:
+    """Per-view ``(image, l1, psnr, ssim)`` in input order, ``batch`` views a
+    call of ``eval_batch_fn`` and one wait for the card a batch.
+
+    ``gt_list`` holds (3, H, W) tensors on the state's device or numpy
+    arrays.  The last batch is short: the JAX version pads it by repeating
+    its last view, because its compiled batch has one size.
+    """
+    dev = ts.gaussians.xyz.device
+    out = []
+    for s in range(0, len(cam_arr_list), batch):
+        gts = torch.stack([torch.as_tensor(g, dtype=torch.float32, device=dev)
+                           for g in gt_list[s:s + batch]])
+        imgs, l1, ps, ss = eval_batch_fn(ts, stack_camera_arrays(cam_arr_list[s:s + batch]),
+                                         gts, bg, iteration)
+        imgs = imgs.cpu().numpy()
+        for j, (a, b, c) in enumerate(zip(l1.tolist(), ps.tolist(), ss.tolist())):
+            out.append((imgs[j], a, b, c))
+    return out
+
+
+def eval_sweep(make_batch_fn: Callable, ts: TrainState, cams: Sequence, cam_to_arrays: Callable,
+               cam_to_gt: Callable, bg: torch.Tensor, iteration: int,
+               batch: int = 10) -> List[Tuple[np.ndarray, float, float, float]]:
+    """Batched eval over cameras of mixed sizes: views grouped by (width,
+    height, fovx, fovy), ``make_batch_fn(cam)`` giving each group's
+    ``make_eval_render_batch`` function, ``cam_to_arrays`` / ``cam_to_gt``
+    mapping a ``data.cameras.Camera`` to its ``CameraArrays`` and (3, H, W)
+    ground truth.  Returns per-view ``(image, l1, psnr, ssim)`` in the
+    order of ``cams``."""
+    groups: Dict[Tuple, list] = {}
+    for i, c in enumerate(cams):
+        groups.setdefault((c.width, c.height, round(c.fovx, 6), round(c.fovy, 6)), []).append(i)
+    results = [None] * len(cams)
+    for idxs in groups.values():
+        res = run_eval_batches(make_batch_fn(cams[idxs[0]]), ts,
+                               [cam_to_arrays(cams[i]) for i in idxs],
+                               [cam_to_gt(cams[i]) for i in idxs], bg, iteration, batch)
+        for i, r in zip(idxs, res):
+            results[i] = r
+    return results
+
+
+@torch.no_grad()
+def grow_capacity(ts: TrainState, new_capacity: int) -> TrainState:
+    """Every per-gaussian tensor and the six groups' moments padded to
+    ``new_capacity`` rows: dead, identity rotations, zeros elsewhere.  The
+    net, its moments, the step count and the generator carry over."""
+    g = ts.gaussians
+    old = g.capacity
+    if new_capacity <= old:
+        raise ValueError(f"new capacity {new_capacity} must exceed {old}")
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((new_capacity - old,) + x.shape[1:])])
+
+    new_g = GaussianState(**{f.name: pad(getattr(g, f.name)) for f in dataclasses.fields(g)})
+    new_g.rotation[old:, 0] = 1.0
+    adam = dataclasses.replace(
+        ts.adam,
+        mu={k: pad(v) if k in PARAM_GROUPS else v for k, v in ts.adam.mu.items()},
+        nu={k: pad(v) if k in PARAM_GROUPS else v for k, v in ts.adam.nu.items()})
+    return dataclasses.replace(ts, gaussians=new_g, adam=adam)
