@@ -111,14 +111,19 @@ Phases (any failure raises and the script exits non-zero):
    rebuilt, 5 more steps; ``eval_sweep`` over the 20 test views in batches
    of 10; ``save_ply`` (with the net) and ``save_checkpoint``, then
    ``load_checkpoint`` into a fresh state.  Checks: the k-NN of the cloud
-   on the card against its CPU plain run (rtol 1e-4, atol 1e-6 x
-   max|x|^2); ``densify_and_prune`` on the card against its CPU run on the
-   same state and normals (alive, counts and moments equal, floats at
-   rtol 1e-6 / atol 1e-6); the render after growth against the render
-   before it (rtol 1e-4 / atol 2e-5); the reloaded state's render
-   bitwise equal to the saved state's, past the warmup so the net runs; counters zeroed before the steps
-   and read after the eval sweep, each kernel launched once per step,
-   eval view and growth-check render (the backward once per step).
+   on the card, 4,096 random rows against a float64 brute force on the CPU
+   (rtol 1e-4, atol 1e-6 x max|x|^2); the kernels on the first step's
+   frame (before the counters are zeroed) and on the first eval view's
+   (after they are read), on the inputs their wrappers received: each
+   ordered fill bitwise, the composite forward bitwise, the backward at
+   the phase-7 bars; ``densify_and_prune`` on the card against its CPU
+   run on the same state and normals (alive, counts and moments equal,
+   floats at rtol 1e-6 / atol 1e-6); the render after growth against the
+   render before it (rtol 1e-4 / atol 2e-5); the reloaded state's render
+   bitwise equal to the saved state's, past the warmup so the net runs;
+   counters zeroed before the steps and read after the eval sweep, each
+   kernel launched once per step, eval view and growth-check render (the
+   backward once per step).
    Prints each stage's time, the DensifyInfo counts, alive before and
    after, and each test view's PSNR.
 
@@ -126,7 +131,8 @@ With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
 PERF.md section 5).
 
-Prints a JSON line of kernel results, then as its last line
+Each phase's first line shows the seconds since the start.  Prints a JSON
+line of kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The full record goes to chiprun_out/chip_smoke.json.
 """
@@ -184,6 +190,7 @@ SCENE_SIZE, SCENE_TRAIN, SCENE_TEST = 800, 50, 20
 SCENE_ITER0 = 581
 SCENE_STEPS, SCENE_GROWN_STEPS, SCENE_VIEWS = 20, 5, 10
 EVAL_BATCH = 10
+KNN_ROWS = 4096  # k-NN rows checked against the CPU
 
 
 def log(*a):
@@ -330,14 +337,11 @@ def prefix_library_forms(torch, pos, delta, K):
             "per channel: scatter_ + cumsum(dim=0, dtype=int32, out=row)": per_channel}
 
 
-def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
-    """The prefix fill vs its plain version, bitwise; its time, bound and host
-    cost.  Returns that record and a function that adds to it the plain
-    version's time, the PyTorch forms of the same function and the device
-    kernels one call launches."""
+def prefix_record(torch, timer, label, pos, delta, K):
+    """The prefix fill vs its plain version on (pos, delta), bitwise; its
+    time, bound and host cost."""
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
 
-    pos, delta = fill_inputs(torch, np.random.default_rng(seed), n, K, C, active, mean_len)
     got = of.ordered_prefix_fill(pos, delta, K)
     ref = of.prefix_fill_plain(pos, delta, K)
     torch.cuda.synchronize()
@@ -347,6 +351,7 @@ def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
     def call():
         return of.ordered_prefix_fill(pos, delta, K)
 
+    n, C = delta.shape
     rec = {
         "shape": label, "n": n, "K": K, "C": C,
         "ms": timer.ms(call, 50),
@@ -355,6 +360,18 @@ def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
     }
     log(f"  ordered_prefix_fill {label}: n={n} K={K} C={C}  kernel {rec['ms']:.4f} ms  "
         f"bound {rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call  bitwise equal")
+    return rec, ref, call
+
+
+def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
+    """``prefix_record`` on seeded positions as binning makes them.  Returns
+    that record and a function that adds to it the plain version's time,
+    the PyTorch forms of the same function and the device kernels one call
+    launches."""
+    from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
+
+    pos, delta = fill_inputs(torch, np.random.default_rng(seed), n, K, C, active, mean_len)
+    rec, ref, call = prefix_record(torch, timer, label, pos, delta, K)
 
     def more():
         forms = prefix_library_forms(torch, pos, delta, K)
@@ -368,6 +385,31 @@ def check_fill_prefix(torch, timer, seed, label, n, K, C, active, mean_len):
             + "; ".join(f"{k} {v:.4f}" for k, v in rec["library_forms_ms"].items()))
 
     return rec, more
+
+
+def place_record(torch, timer, label, pos, vals, Kp):
+    """The place vs its plain version on (pos, vals), bitwise; its time,
+    bound and host cost."""
+    from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
+
+    got = of.ordered_place_i32(pos, vals, Kp)
+    ref = of.place_plain(pos, vals, Kp)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"ordered_place_i32 ({label}) differs from its plain version")
+
+    def call():
+        return of.ordered_place_i32(pos, vals, Kp)
+
+    n = pos.shape[0]
+    rec = {
+        "shape": label, "n": n, "K": Kp, "valid": int((pos < Kp).sum()),
+        "ms": timer.ms(call, 50), "bound_ms": bytes_ms(n * 8 + Kp * 4),
+        "host_us": host_us(torch, call), "max_abs_err": 0.0,
+    }
+    log(f"  ordered_place_i32 {label}: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call  bitwise equal")
+    return rec, call
 
 
 def check_place(torch, timer, seed, n, Kp, tiles, mean_count, unit=128,
@@ -386,25 +428,10 @@ def check_place(torch, timer, seed, n, Kp, tiles, mean_count, unit=128,
                                                    Kp + rows), Kp + rows).astype(np.int32)
     vals = rng.integers(0, CAPACITY, n).astype(np.int32)
     pos, vals = torch.from_numpy(pos).cuda(), torch.from_numpy(vals).cuda()
-    got = of.ordered_place_i32(pos, vals, Kp)
-    ref = of.place_plain(pos, vals, Kp)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError(f"ordered_place_i32 ({label}) differs from its plain version")
-    ok = pos < Kp
-
-    def call():
-        return of.ordered_place_i32(pos, vals, Kp)
-
-    rec = {
-        "shape": label, "n": n, "K": Kp, "valid": int(ok.sum()),
-        "ms": timer.ms(call, 50), "bound_ms": bytes_ms(n * 8 + Kp * 4),
-        "host_us": host_us(torch, call), "max_abs_err": 0.0,
-    }
-    log(f"  ordered_place_i32 {label}: n={n} Kp={Kp}  kernel {rec['ms']:.4f} ms  bound "
-        f"{rec['bound_ms']:.4f}  host {rec['host_us']:.2f} us/call  bitwise equal")
+    rec, call = place_record(torch, timer, label, pos, vals, Kp)
 
     def more():
+        ok = pos < Kp
         idx, src = pos[ok].long(), vals[ok]
         out = torch.zeros(Kp, dtype=torch.int32, device="cuda")
         rec["plain_ms"] = timer.ms(lambda: of.place_plain(pos, vals, Kp), 10)
@@ -877,8 +904,8 @@ def assert_rows_close(torch, got, ref, what):
 
 
 def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 train frame"):
-    """Phases 7 and 10 (d): the backward kernel vs its plain version at the
-    train-path shapes."""
+    """Phases 7, 10 (d) and 11: the backward kernel vs its plain version at
+    the train-path shapes."""
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
     kw = dict(grid_x=grid_x, **composite_kw(cfg))
@@ -1373,7 +1400,64 @@ def check_densify_card_vs_cpu(torch, ts, normals, kw):
     return {k: int(v) for k, v in cpu[3]._asdict().items()}, worst
 
 
-def scene_phase(torch):
+def captured_frame(torch, state, net, c, cfg, iteration):
+    """``frame_tiles`` of the phase-11 camera ``c`` with the ordered-fill
+    calls of its binning recorded: (splats_t, binning, grid_x, fills), each
+    fill (name, pos, second argument, K) cloned as its wrapper received it."""
+    from gs_deformable_tpu_torch.data.cameras import camera_arrays
+    from gs_deformable_tpu_torch.ops import binning as binning_mod
+
+    fills = []
+    saved = binning_mod.ordered_prefix_fill, binning_mod.ordered_place_i32
+
+    def keep(name, fn):
+        def call(pos, x, K):
+            fills.append((name, pos.clone(), x.clone(), K))
+            return fn(pos, x, K)
+        return call
+
+    binning_mod.ordered_prefix_fill = keep("ordered_prefix_fill", saved[0])
+    binning_mod.ordered_place_i32 = keep("ordered_place_i32", saved[1])
+    try:
+        tiles = frame_tiles(torch, state, net, camera_arrays(c), c.tan_fovx, c.tan_fovy, cfg,
+                            c.width, c.height, iteration)
+    finally:
+        binning_mod.ordered_prefix_fill, binning_mod.ordered_place_i32 = saved
+    names = [f[0] for f in fills]
+    if sorted(names) != ["ordered_place_i32"] + ["ordered_prefix_fill"] * 2:
+        raise AssertionError(f"one binning made the fill calls {names}")
+    return (*tiles, fills)
+
+
+def scene_kernel_checks(torch, timer, frame, cfg, label, backward):
+    """Phase 11's kernels against their plain versions on one frame's own
+    inputs: each recorded ordered fill bitwise, the composite forward
+    bitwise and, for a train frame, the backward at the phase-7 bars."""
+    splats_t, binning, gx, fills = frame
+    recs = []
+    for i, (name, pos, x, K) in enumerate(fills):
+        what = f"{label} call {i}"
+        recs.append(prefix_record(torch, timer, what, pos, x, K)[0]
+                    if name == "ordered_prefix_fill" else
+                    place_record(torch, timer, what, pos, x, K)[0])
+    check = check_backward if backward else check_composite
+    return {"fills": recs, "composite": check(torch, timer, splats_t, binning, gx, cfg, label)}
+
+
+def knn_rows_cpu(torch, pts, rows, chunk=64):
+    """Brute force in float64 on the CPU: the mean squared distance from
+    each point of ``rows`` to its 3 nearest other points of ``pts``."""
+    p = pts.double()
+    out = []
+    for s in range(0, len(rows), chunk):
+        r = rows[s:s + chunk]
+        d2 = ((p[r, None, :] - p[None, :, :]) ** 2).sum(-1)
+        d2[torch.arange(len(r)), r] = float("inf")
+        out.append(torch.topk(d2, 3, dim=1, largest=False).values.mean(-1))
+    return torch.cat(out)
+
+
+def scene_phase(torch, timer):
     """Phase 11: scene directory -> Scene -> init_from_points -> train steps
     with densify, opacity reset and growth -> eval sweep -> PLY, nets and
     checkpoint -> reload and render."""
@@ -1419,25 +1503,34 @@ def scene_phase(torch):
 
         pts = torch.from_numpy(pcd.points)
         dist = timed("knn_ms", lambda: mean_sq_dist_knn3(pts.cuda()))
+        rows = torch.from_numpy(np.random.default_rng(3).choice(n, KNN_ROWS, replace=False))
         t0 = time.perf_counter()
-        dist_cpu = mean_sq_dist_knn3(pts)
+        dist_cpu = knn_rows_cpu(torch, pts, rows)
         knn_cpu_s = time.perf_counter() - t0
         atol = 1e-6 * float(pts.abs().max()) ** 2
-        knn_err = float((dist.cpu() - dist_cpu).abs().max())
-        if not torch.allclose(dist.cpu(), dist_cpu, rtol=1e-4, atol=atol):
+        got = dist.cpu()[rows].double()
+        knn_err = float((got - dist_cpu).abs().max())
+        if not torch.allclose(got, dist_cpu, rtol=1e-4, atol=atol):
             raise AssertionError(f"k-NN card vs CPU: max diff {knn_err}")
         state = timed("init_ms", lambda: init_from_points(pcd.points, pcd.colors, cap,
                                                           cfg.model.sh_degree))
         net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
         ts = training.init_train_state(state, net, seed=0)
-        log(f"  k-NN of the {n}-point cloud: card {times['knn_ms']:.1f} ms, CPU plain run "
-            f"{knn_cpu_s:.1f} s, max abs diff {knn_err:.3g} (bar rtol 1e-4, atol {atol:.3g})")
+        log(f"  k-NN of the {n}-point cloud: card {times['knn_ms']:.1f} ms; {KNN_ROWS} random "
+            f"rows against a float64 brute force on the CPU ({knn_cpu_s:.1f} s): max abs diff "
+            f"{knn_err:.3g} (bar rtol 1e-4, atol {atol:.3g})")
 
         cam0 = train_cams[0]
         kw = dict(width=cam0.width, height=cam0.height, tan_fovx=cam0.tan_fovx,
                   tan_fovy=cam0.tan_fovy, active_sh_degree=cfg.model.sh_degree)
         bg = torch.zeros(3, device="cuda")
         gts = {id(c): torch.from_numpy(c.image).cuda() for c in train_cams + test_cams}
+        # The first step's frame, its kernels held to their plain versions
+        # before the counters are zeroed.
+        train_check = scene_kernel_checks(
+            torch, timer, captured_frame(torch, ts.gaussians, ts.net, train_cams[0], cfg,
+                                         SCENE_ITER0),
+            cfg, "scene train step", backward=True)
         reset_launch_counts()
 
         def steps(step, ts, it0, count):
@@ -1466,8 +1559,7 @@ def scene_phase(torch):
         # densify as train.py:900-912 at this iteration
         dkw = dict(grad_threshold=o.densify_grad_threshold, min_opacity=o.min_opacity,
                    extent=sc.cameras_extent, percent_dense=o.percent_dense,
-                   use_screen_prune=it > o.opacity_reset_interval,
-                   max_screen_size=float(o.max_screen_size))
+                   use_screen_prune=it > o.opacity_reset_interval)
         normals = torch.randn((cap, 2, 3), generator=ts.generator, device="cuda")
         cpu_info, dens_err = check_densify_card_vs_cpu(torch, ts, normals, dkw)
         densify = training.make_densify_step(cfg, extent=sc.cameras_extent,
@@ -1507,6 +1599,10 @@ def scene_phase(torch):
         if not all(np.isfinite(r[0]).all() and np.isfinite(r[1:]).all() for r in res):
             raise AssertionError("eval sweep gave non-finite images or metrics")
         counts = launch_counts()
+        # The first eval view's frame, after the counters are read.
+        eval_check = scene_kernel_checks(
+            torch, timer, captured_frame(torch, ts.gaussians, ts.net, test_cams[0], cfg, it),
+            cfg, "scene eval view", backward=False)
 
         pc_dir = sc.point_cloud_dir(it)
         ck_path = os.path.join(model, "ckpt_save", f"chkpnt_{it}.npz")
@@ -1554,7 +1650,8 @@ def scene_phase(torch):
             "required_instances": reqs + grown_reqs,
             "grown_losses": grown_losses, "densify": info, "densify_card_vs_cpu_err": dens_err,
             "alive_before": alive_before, "alive_after": alive_after,
-            "growth_render_err": grow_err, "psnr": psnrs, "launches": counts}
+            "growth_render_err": grow_err, "psnr": psnrs, "launches": counts,
+            "kernel_checks": {"train_step": train_check, "eval_view": eval_check}}
 
 
 def main():
@@ -1570,13 +1667,19 @@ def main():
     from gs_deformable_tpu_torch.training import make_eval_render
 
     t_start = time.time()
+    phase_s = {}  # seconds from the start to each phase's start
+
+    def phase(text):
+        at = phase_s[text.split(":")[0]] = time.time() - t_start
+        log(f"{text}  [{at:.1f} s]")
+
     card = card_line()
-    log("phase 1: device")
+    phase("phase 1: device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
 
-    log("phase 2: build kernels")
+    phase("phase 2: build kernels")
     t0 = time.time()
     _build.build_all()
     build_s = time.time() - t0
@@ -1591,7 +1694,7 @@ def main():
     log(f"  blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 256 "
         f"threads a block): {occupancy}")
 
-    log("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
+    phase("phase 3: render path at 1920x1080, 100k gaussians, 8x256 bf16 offset net")
     cfg = render_cfg(config)
     state = scene(torch, N_GAUSS, CAPACITY)
     net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
@@ -1642,24 +1745,24 @@ def main():
     log(f"  frames: {[round(x, 3) for x in frame_ms]} ms; median {frame_med:.3f} ms/frame; "
         f"required instances {reqs[0][0]} / {INSTANCE_CAPACITY}, aligned {reqs[0][1]} / {Kp}")
 
-    log("phase 4: kernels vs plain versions at the render-path shapes")
+    phase("phase 4: kernels vs plain versions at the render-path shapes")
     timer = Timer(torch)
     front, relay, place = render_fills(torch, timer, max(1, round(reqs[0][0] / N_GAUSS)),
                                        max(1, round(reqs[0][0] / NTILES)), Kp)
     splats_t, binning, gx = frame_tiles(torch, state, net, cams[0], tanx, tany, cfg)
     comp = check_composite(torch, timer, splats_t, binning, gx, cfg)
 
-    log("phase 5: reduced scene, card vs CPU")
+    phase("phase 5: reduced scene, card vs CPU")
     reduced = reduced_scene_check(torch)
     del state, net, splats_t, binning
 
-    log(f"phase 6: train path at {TRAIN_W}x{TRAIN_H}, 100k gaussians, 8x256 bf16 offset net, "
+    phase(f"phase 6: train path at {TRAIN_W}x{TRAIN_H}, 100k gaussians, 8x256 bf16 offset net, "
         f"iteration {TRAIN_ITERATION}")
     train, ts, tcam, tcfg, (ttanx, ttany) = train_phase(torch)
     train_counts = train["launches"]
     learning = learning_phase(torch)
 
-    log("phase 7: ordered fills and the composite backward at the train-path shapes")
+    phase("phase 7: ordered fills and the composite backward at the train-path shapes")
     splats_t, binning, gx = frame_tiles(torch, ts.gaussians, ts.net, tcam, ttanx, ttany, tcfg,
                                         TRAIN_W, TRAIN_H, TRAIN_ITERATION)
     bwd = check_backward(torch, timer, splats_t, binning, gx, tcfg)
@@ -1668,20 +1771,20 @@ def main():
     train_fill = train_fills(torch, timer, max(1, round(treq / N_GAUSS)),
                              max(1, round(treq / TRAIN_TILES)))
 
-    log("phase 8: reduced train step, card vs CPU")
+    phase("phase 8: reduced train step, card vs CPU")
     reduced_step = reduced_step_check(torch)
 
-    log(f"phase 9: the bench's train workload: packed (sub_chunk {PACKED_SUB}, slack -1), "
+    phase(f"phase 9: the bench's train workload: packed (sub_chunk {PACKED_SUB}, slack -1), "
         f"make_chunk_step, {CHUNKS} chunks of {CHUNK_MAX} steps")
     chunked = chunk_phase(torch)
     chunk_counts = chunked["launches"]
 
-    log("phase 10: packed vs mixed, rows 5 and 6 vs their plain versions, packed sort")
+    phase("phase 10: packed vs mixed, rows 5 and 6 vs their plain versions, packed sort")
     packed, pfwd, pbwd = packed_checks(torch, timer)
 
-    log(f"phase 11: scene to model: a {SCENE_SIZE}x{SCENE_SIZE} D-NeRF scene on disk, "
+    phase(f"phase 11: scene to model: a {SCENE_SIZE}x{SCENE_SIZE} D-NeRF scene on disk, "
         f"Scene, init_from_points, train with densify, reset and growth, eval, save, reload")
-    scene_rec = scene_phase(torch)
+    scene_rec = scene_phase(torch, timer)
 
     def total(key, recs):
         return sum(r[key] for r in recs)
@@ -1738,7 +1841,7 @@ def main():
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "kernels": kernels, "breakdown": breakdown,
-        "seconds": time.time() - t_start,
+        "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -246,8 +246,7 @@ def _scatter_rows(leaf: torch.Tensor, dests, values) -> torch.Tensor:
 def densify_and_prune(state: GaussianState, mu: Dict[str, torch.Tensor],
                       nu: Dict[str, torch.Tensor], normals: torch.Tensor, *,
                       grad_threshold, min_opacity, extent, percent_dense: float,
-                      use_screen_prune: bool, max_screen_size: float = 20.0,
-                      offset_mask: Optional[torch.Tensor] = None):
+                      use_screen_prune: bool, offset_mask: Optional[torch.Tensor] = None):
     """Clone, split and prune with fixed shapes (gaussian_model.py:1219-1233).
 
     Alive rows whose mean |dL/d ndc mean2D| reaches ``grad_threshold``
@@ -259,9 +258,9 @@ def densify_and_prune(state: GaussianState, mu: Dict[str, torch.Tensor],
     not fit drops (``n_dropped``).  New rows get zeroed moments in ``mu``
     and ``nu`` (dicts of the six groups); then rows with opacity below
     ``min_opacity`` (and, with ``use_screen_prune``, a scale above
-    ``0.1 * extent``) die, and the densification statistics reset.
-    ``max_screen_size`` is unused: the reference zeroes the screen radii
-    before its screen-size test, so that term never fires.  ``offset_mask``
+    ``0.1 * extent``) die, and the densification statistics reset.  The
+    reference's screen-size term never fires (it zeroes the screen radii
+    before that test), so there is none here.  ``offset_mask``
     (P,) bool, when given, further limits clone and split to its rows.
 
     Returns (state, mu, nu, DensifyInfo); nothing is updated in place.

@@ -294,7 +294,7 @@ def make_densify_step(cfg: Config, extent: float, use_screen_prune: bool, device
             {k: ts.adam.nu[k] for k in PARAM_GROUPS}, normals,
             grad_threshold=grad_threshold, min_opacity=min_opacity, extent=extent,
             percent_dense=cfg.opt.percent_dense, use_screen_prune=use_screen_prune,
-            max_screen_size=float(cfg.opt.max_screen_size), offset_mask=offset_mask)
+            offset_mask=offset_mask)
         adam = dataclasses.replace(ts.adam, mu={**ts.adam.mu, **mu}, nu={**ts.adam.nu, **nu})
         return dataclasses.replace(ts, gaussians=gstate, adam=adam), info._asdict()
 

@@ -48,6 +48,27 @@ def test_mean_sq_dist_knn3(name, block):
         assert (got[:3] < got[3:10].max()).all()
 
 
+@pytest.mark.parametrize("n, rows", [(1_000, 4096), (100_000, 2684), (5_000_000, 53),
+                                     (1 << 30, 1)])
+def test_block_rows(n, rows):
+    assert knn.block_rows(n) == rows
+    assert rows == 1 or rows * n * 4 <= 1 << 30  # a block's fp32 distances within 1 GiB
+
+
+@pytest.mark.parametrize("n, elements", [(300, 1 << 14), (2_000, 1 << 16)])
+def test_mean_sq_dist_knn3_budget_blocks(n, elements):
+    """Blocks sized by a distance budget smaller than the cloud: the same
+    result as JAX's and as one block's."""
+    block = knn.block_rows(n, elements)
+    assert block * n <= elements and block < n
+    pts = np.random.default_rng(n).normal(size=(n, 3)).astype(np.float32)
+    want = np.asarray(jknn.mean_sq_dist_knn3(jnp.asarray(pts)))
+    atol = 1e-6 * float(np.abs(pts).max()) ** 2
+    for got in (knn.mean_sq_dist_knn3(torch.from_numpy(pts), block=block),
+                knn.mean_sq_dist_knn3(torch.from_numpy(pts))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=atol)
+
+
 @pytest.mark.parametrize("name", list(CLOUDS))
 def test_morton_codes(name):
     pts = CLOUDS[name].astype(np.float32)
