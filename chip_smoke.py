@@ -112,11 +112,11 @@ Phases (any failure raises and the script exits non-zero):
    of 10; ``save_ply`` (with the net) and ``save_checkpoint``, then
    ``load_checkpoint`` into a fresh state.  Checks: the k-NN of the cloud
    on the card, 4,096 random rows against a float64 brute force on the CPU
-   (rtol 1e-4, atol 1e-6 x max|x|^2); the kernels on the first step's
-   frame (before the counters are zeroed) and on the first eval view's
-   (after they are read), on the inputs their wrappers received: each
-   ordered fill bitwise, the composite forward bitwise, the backward at
-   the phase-7 bars; ``densify_and_prune`` on the card against its CPU
+   (rtol 1e-4, atol 1e-6 x max|x|^2); the kernels on the inputs their
+   wrappers received inside the run (``recorded_frames``), the first
+   step's and the first eval view's: each ordered fill bitwise, the
+   composite forward bitwise, the backward at the phase-7 bars on the
+   step's own forward output and upstream gradient; ``densify_and_prune`` on the card against its CPU
    run on the same state and normals (alive, counts and moments equal,
    floats at rtol 1e-6 / atol 1e-6); the render after growth against the
    render before it (rtol 1e-4 / atol 2e-5); the reloaded state's render
@@ -126,6 +126,34 @@ Phases (any failure raises and the script exits non-zero):
    backward once per step).
    Prints each stage's time, the DensifyInfo counts, alive before and
    after, and each test view's PSNR.
+12. the command-line entry points on phase 11's scene: ``train.main`` in
+   ``--deform_mode se3`` with ``--use_opacity_mask`` and ``--eval``, the
+   default 8x256 nets, 620 iterations with warmup 300 (the SE(3) net and
+   the opacity gate run from 300 on), the default densification (at 600),
+   checkpoints at 610 and 620, a test report and a save at 620, the viewer
+   listening on a free local port; then ``render_cli.main`` over the 70
+   views and ``video.frames_to_video`` on the test renders.  Checks: (a)
+   the mean loss of the last 20 iterations under that of the first 20
+   after warmup, and the JAX CLI's output layout (cfg_args, cameras.json,
+   input.ply, the two checkpoints, the PLY and five .npz nets); (b) the
+   render CLI's own image of the first test view (its PLY at
+   ``_next_pow2_from_ply``'s capacity and its five nets, recorded as it ran)
+   bitwise equal to the checkpoint at 620 rendered through the same eval
+   path, both past warmup, and a perturbed opacity_mask net on the render
+   CLI's state changes that image; (c) the kernels on the inputs their
+   wrappers received inside the runs (``recorded_frames``): the trainer's
+   step at 620, the backward on its own forward output and upstream
+   gradient, and the render CLI's first test view, held as phase 11 holds
+   them, and the launches counted around each CLI run: forward 1, backward
+   1, prefix 2 and place 1 a step, and per view; (d) a reduced se3 + gate
+   step card vs CPU at phase 8's bars and allowance; (e) each
+   instance-capacity growth the trainer made (from 2^19 on overflow),
+   printed.  Prints each stage's time: scene load, init, ms/step in warmup
+   and after, densify, test report, save, checkpoint, the render CLI's time
+   per view (scene load and PNG encodes included) and the video; and the
+   SE(3) net's and gate's share of a step's device time, from the
+   torch.profiler trace that the trainer's ``--profile_dir`` writes of one
+   step past warmup (``se3_share_of_step``).
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
@@ -137,11 +165,15 @@ line of kernel results, then as its last line
 The full record goes to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -191,6 +223,10 @@ SCENE_ITER0 = 581
 SCENE_STEPS, SCENE_GROWN_STEPS, SCENE_VIEWS = 20, 5, 10
 EVAL_BATCH = 10
 KNN_ROWS = 4096  # k-NN rows checked against the CPU
+# Phase 12: the trainer CLI on phase 11's scene in se3 mode with the opacity
+# gate, past a warmup short enough that the nets run in most steps and up
+# to the first densification (600) and 20 steps beyond.
+CLI_ITERS, CLI_WARMUP = 620, 300
 
 
 def log(*a):
@@ -517,14 +553,15 @@ def fill_entries(front, relay, place, train, launches):
 
 
 def screen_arrays(torch, state, net, cam, tanx, tany, cfg, width, height,
-                  iteration=ITERATION):
+                  iteration=ITERATION, latent=None):
     """The render path's screen-space arrays, the rasterizer's positional inputs:
     (means2d_pix, depths, conics, opacities, colors, rect, tiles_touched)."""
     from gs_deformable_tpu_torch import renderer
     from gs_deformable_tpu_torch.ops import rasterize
 
     with torch.no_grad():
-        m, s, r, o, shs, _ = renderer.deformed_attributes(state, net, cam.time, iteration, cfg)
+        m, s, r, o, shs, _ = renderer.deformed_attributes(state, net, cam.time, iteration, cfg,
+                                                          latent)
         ss = rasterize.screen_space(m, s, r, o, shs, viewmatrix=cam.world_view,
                                     projmatrix=cam.full_proj, campos=cam.camera_center,
                                     width=width, height=height, tan_fovx=tanx, tan_fovy=tany,
@@ -790,18 +827,18 @@ def train_cfg(config, packed):
 
 
 def train_setup(torch, cfg, n, cap, width, height, device, seed=0):
-    """(TrainState, camera, ground truth, step) for the bench scene at one size."""
-    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
-    from gs_deformable_tpu_torch.training import init_train_state, make_train_step
+    """(TrainState, camera, ground truth, step) for the bench scene at one size,
+    the nets of ``cfg.model.deform_mode`` and the latent heads seeded by ``seed``."""
+    from gs_deformable_tpu_torch.training import init_nets, init_train_state, make_train_step
 
     state = scene(torch, n, cap, seed=seed, device=device)
-    net = OffsetNet(init_offset_params(seed, cfg.deform), cfg.deform, device=device)
+    net, latent = init_nets(cfg, seed, device)
     cam, tanx, tany = camera(width, height, 0.5, device)
     gt = np.random.default_rng(seed + 100).uniform(0, 1, (3, height, width))
     gt = torch.from_numpy(gt.astype(np.float32)).to(device)
     step = make_train_step(cfg, width=width, height=height, tan_fovx=tanx, tan_fovy=tany,
                            active_sh_degree=3, spatial_lr_scale=1.0, device=device)
-    return init_train_state(state, net), cam, gt, step, (tanx, tany)
+    return init_train_state(state, net, latent=latent), cam, gt, step, (tanx, tany)
 
 
 def mu_leaves(ts):
@@ -903,9 +940,12 @@ def assert_rows_close(torch, got, ref, what):
                                    msg=lambda m: f"{what} field {r}: {m}")
 
 
-def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 train frame"):
-    """Phases 7, 10 (d) and 11: the backward kernel vs its plain version at
-    the train-path shapes."""
+def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 train frame",
+                   upstream=None):
+    """Phases 7, 10 (d), 11 and 12: the backward kernel vs its plain version
+    at the train-path shapes.  ``upstream``: the (forward output, upstream
+    gradient) that the wrapper received in a run; by default the forward's
+    output here and a seeded normal gradient."""
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
 
     kw = dict(grid_x=grid_x, **composite_kw(cfg))
@@ -917,10 +957,16 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
         raise AssertionError("train frame: composite forward differs from its plain version")
     fwd_rgb_err = float((out[:, 0:3] - fwd_out[:, 0:3]).abs().max())
     fwd_t_err = float((out[:, 3] - fwd_out[:, 3]).abs().max())
-    rng = np.random.default_rng(7)
-    grad = torch.zeros_like(out)
-    grad[:, 0:4] = torch.from_numpy(
-        rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)).cuda()
+    if upstream is None:
+        rng = np.random.default_rng(7)
+        grad = torch.zeros_like(out)
+        grad[:, 0:4] = torch.from_numpy(
+            rng.normal(size=(out.shape[0], 4, 256)).astype(np.float32)).cuda()
+    else:
+        run_out, grad = upstream
+        if not torch.equal(out, run_out):
+            raise AssertionError(f"{label}: the forward output the backward received differs "
+                                 f"from the forward's on the same inputs")
     args = (*tables, out, grad)
     got = comp.composite_backward(*args, **kw)
     again = comp.composite_backward(*args, **kw)
@@ -987,20 +1033,23 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
     return rec
 
 
-def reduced_step_check(torch):
-    """Phase 8: one reduced train step on the card (kernels) and the CPU (plain)."""
+def reduced_step_check(torch, **model):
+    """Phase 8 (and 12 (d) with ``model`` the se3 and gate settings): one
+    reduced train step on the card (kernels) and the CPU (plain)."""
     from gs_deformable_tpu_torch import config
     from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     w, h = 640, 360
-    cfg = config.Config(deform=config.DeformConfig(compute_dtype="float32"),
+    cfg = config.Config(model=config.ModelConfig(**model),
+                        deform=config.DeformConfig(compute_dtype="float32"),
                         raster=config.RasterizeConfig(instance_capacity=1 << 16))
     res = {}
     for dev in ("cuda", "cpu"):
         ts, cam, gt, step, (tanx, tany) = train_setup(torch, cfg, 5000, 8192, w, h, dev,
                                                       seed=1)
         if dev == "cuda":
-            screen = screen_arrays(torch, ts.gaussians, ts.net, cam, tanx, tany, cfg, w, h)
+            screen = screen_arrays(torch, ts.gaussians, ts.net, cam, tanx, tany, cfg, w, h,
+                                   latent=ts.latent)
         reset_launch_counts()
         ts, m = step(ts, cam, gt, torch.zeros(3, device=dev), ITERATION)
         counts = launch_counts()
@@ -1400,39 +1449,11 @@ def check_densify_card_vs_cpu(torch, ts, normals, kw):
     return {k: int(v) for k, v in cpu[3]._asdict().items()}, worst
 
 
-def captured_frame(torch, state, net, c, cfg, iteration):
-    """``frame_tiles`` of the phase-11 camera ``c`` with the ordered-fill
-    calls of its binning recorded: (splats_t, binning, grid_x, fills), each
-    fill (name, pos, second argument, K) cloned as its wrapper received it."""
-    from gs_deformable_tpu_torch.data.cameras import camera_arrays
-    from gs_deformable_tpu_torch.ops import binning as binning_mod
-
-    fills = []
-    saved = binning_mod.ordered_prefix_fill, binning_mod.ordered_place_i32
-
-    def keep(name, fn):
-        def call(pos, x, K):
-            fills.append((name, pos.clone(), x.clone(), K))
-            return fn(pos, x, K)
-        return call
-
-    binning_mod.ordered_prefix_fill = keep("ordered_prefix_fill", saved[0])
-    binning_mod.ordered_place_i32 = keep("ordered_place_i32", saved[1])
-    try:
-        tiles = frame_tiles(torch, state, net, camera_arrays(c), c.tan_fovx, c.tan_fovy, cfg,
-                            c.width, c.height, iteration)
-    finally:
-        binning_mod.ordered_prefix_fill, binning_mod.ordered_place_i32 = saved
-    names = [f[0] for f in fills]
-    if sorted(names) != ["ordered_place_i32"] + ["ordered_prefix_fill"] * 2:
-        raise AssertionError(f"one binning made the fill calls {names}")
-    return (*tiles, fills)
-
-
-def scene_kernel_checks(torch, timer, frame, cfg, label, backward):
-    """Phase 11's kernels against their plain versions on one frame's own
-    inputs: each recorded ordered fill bitwise, the composite forward
-    bitwise and, for a train frame, the backward at the phase-7 bars."""
+def scene_kernel_checks(torch, timer, frame, cfg, label, backward, upstream=None):
+    """Phase 11's and 12's kernels against their plain versions on one
+    frame's own inputs: each recorded ordered fill bitwise, the composite
+    forward bitwise and, for a train frame, the backward at the phase-7 bars
+    (on the recorded ``upstream`` where given, see ``check_backward``)."""
     splats_t, binning, gx, fills = frame
     recs = []
     for i, (name, pos, x, K) in enumerate(fills):
@@ -1440,8 +1461,11 @@ def scene_kernel_checks(torch, timer, frame, cfg, label, backward):
         recs.append(prefix_record(torch, timer, what, pos, x, K)[0]
                     if name == "ordered_prefix_fill" else
                     place_record(torch, timer, what, pos, x, K)[0])
-    check = check_backward if backward else check_composite
-    return {"fills": recs, "composite": check(torch, timer, splats_t, binning, gx, cfg, label)}
+    if backward:
+        comp = check_backward(torch, timer, splats_t, binning, gx, cfg, label, upstream)
+    else:
+        comp = check_composite(torch, timer, splats_t, binning, gx, cfg, label)
+    return {"fills": recs, "composite": comp}
 
 
 def knn_rows_cpu(torch, pts, rows, chunk=64):
@@ -1457,12 +1481,11 @@ def knn_rows_cpu(torch, pts, rows, chunk=64):
     return torch.cat(out)
 
 
-def scene_phase(torch, timer):
-    """Phase 11: scene directory -> Scene -> init_from_points -> train steps
-    with densify, opacity reset and growth -> eval sweep -> PLY, nets and
-    checkpoint -> reload and render."""
+def scene_phase(torch, timer, root):
+    """Phase 11: scene directory (written under ``root``) -> Scene ->
+    init_from_points -> train steps with densify, opacity reset and growth
+    -> eval sweep -> PLY, nets and checkpoint -> reload and render."""
     import random
-    import tempfile
 
     from gs_deformable_tpu_torch import config
     from gs_deformable_tpu_torch.data.cameras import camera_arrays
@@ -1486,52 +1509,50 @@ def scene_phase(torch, timer):
 
     cfg = config.Config()
     o = cfg.opt
-    with tempfile.TemporaryDirectory() as root:
-        src, model = os.path.join(root, "scene"), os.path.join(root, "model")
-        timed("scene_write_ms", lambda: write_scene(torch, src))
-        sc = timed("scene_load_ms", lambda: Scene(
-            src, model, eval=True, rng=np.random.RandomState(0), shuffle_rng=random.Random(0)))
-        train_cams, test_cams = sc.get_train_cameras(), sc.get_test_cameras()
-        if (len(train_cams), len(test_cams)) != (SCENE_TRAIN, SCENE_TEST):
-            raise AssertionError(f"scene has {len(train_cams)} / {len(test_cams)} cameras")
-        pcd = sc.scene_info.point_cloud
-        n = len(pcd.points)
-        cap = 1 << (2 * n - 1).bit_length()  # train.py:413-417: 2n rounded up to a power of 2
-        log(f"  wrote and loaded {SCENE_TRAIN} + {SCENE_TEST} frames of {SCENE_SIZE}x"
-            f"{SCENE_SIZE} RGBA; {n} random initial points, capacity {cap}, extent "
-            f"{sc.cameras_extent:.4f}")
+    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    timed("scene_write_ms", lambda: write_scene(torch, src))
+    sc = timed("scene_load_ms", lambda: Scene(
+        src, model, eval=True, rng=np.random.RandomState(0), shuffle_rng=random.Random(0)))
+    train_cams, test_cams = sc.get_train_cameras(), sc.get_test_cameras()
+    if (len(train_cams), len(test_cams)) != (SCENE_TRAIN, SCENE_TEST):
+        raise AssertionError(f"scene has {len(train_cams)} / {len(test_cams)} cameras")
+    pcd = sc.scene_info.point_cloud
+    n = len(pcd.points)
+    cap = 1 << (2 * n - 1).bit_length()  # train.py:413-417: 2n rounded up to a power of 2
+    log(f"  wrote and loaded {SCENE_TRAIN} + {SCENE_TEST} frames of {SCENE_SIZE}x"
+        f"{SCENE_SIZE} RGBA; {n} random initial points, capacity {cap}, extent "
+        f"{sc.cameras_extent:.4f}")
 
-        pts = torch.from_numpy(pcd.points)
-        dist = timed("knn_ms", lambda: mean_sq_dist_knn3(pts.cuda()))
-        rows = torch.from_numpy(np.random.default_rng(3).choice(n, KNN_ROWS, replace=False))
-        t0 = time.perf_counter()
-        dist_cpu = knn_rows_cpu(torch, pts, rows)
-        knn_cpu_s = time.perf_counter() - t0
-        atol = 1e-6 * float(pts.abs().max()) ** 2
-        got = dist.cpu()[rows].double()
-        knn_err = float((got - dist_cpu).abs().max())
-        if not torch.allclose(got, dist_cpu, rtol=1e-4, atol=atol):
-            raise AssertionError(f"k-NN card vs CPU: max diff {knn_err}")
-        state = timed("init_ms", lambda: init_from_points(pcd.points, pcd.colors, cap,
-                                                          cfg.model.sh_degree))
-        net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
-        ts = training.init_train_state(state, net, seed=0)
-        log(f"  k-NN of the {n}-point cloud: card {times['knn_ms']:.1f} ms; {KNN_ROWS} random "
-            f"rows against a float64 brute force on the CPU ({knn_cpu_s:.1f} s): max abs diff "
-            f"{knn_err:.3g} (bar rtol 1e-4, atol {atol:.3g})")
+    pts = torch.from_numpy(pcd.points)
+    dist = timed("knn_ms", lambda: mean_sq_dist_knn3(pts.cuda()))
+    rows = torch.from_numpy(np.random.default_rng(3).choice(n, KNN_ROWS, replace=False))
+    t0 = time.perf_counter()
+    dist_cpu = knn_rows_cpu(torch, pts, rows)
+    knn_cpu_s = time.perf_counter() - t0
+    atol = 1e-6 * float(pts.abs().max()) ** 2
+    got = dist.cpu()[rows].double()
+    knn_err = float((got - dist_cpu).abs().max())
+    if not torch.allclose(got, dist_cpu, rtol=1e-4, atol=atol):
+        raise AssertionError(f"k-NN card vs CPU: max diff {knn_err}")
+    state = timed("init_ms", lambda: init_from_points(pcd.points, pcd.colors, cap,
+                                                      cfg.model.sh_degree))
+    net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
+    ts = training.init_train_state(state, net, seed=0)
+    log(f"  k-NN of the {n}-point cloud: card {times['knn_ms']:.1f} ms; {KNN_ROWS} random "
+        f"rows against a float64 brute force on the CPU ({knn_cpu_s:.1f} s): max abs diff "
+        f"{knn_err:.3g} (bar rtol 1e-4, atol {atol:.3g})")
 
-        cam0 = train_cams[0]
-        kw = dict(width=cam0.width, height=cam0.height, tan_fovx=cam0.tan_fovx,
-                  tan_fovy=cam0.tan_fovy, active_sh_degree=cfg.model.sh_degree)
-        bg = torch.zeros(3, device="cuda")
-        gts = {id(c): torch.from_numpy(c.image).cuda() for c in train_cams + test_cams}
-        # The first step's frame, its kernels held to their plain versions
-        # before the counters are zeroed.
-        train_check = scene_kernel_checks(
-            torch, timer, captured_frame(torch, ts.gaussians, ts.net, train_cams[0], cfg,
-                                         SCENE_ITER0),
-            cfg, "scene train step", backward=True)
-        reset_launch_counts()
+    cam0 = train_cams[0]
+    kw = dict(width=cam0.width, height=cam0.height, tan_fovx=cam0.tan_fovx,
+              tan_fovy=cam0.tan_fovy, active_sh_degree=cfg.model.sh_degree)
+    bg = torch.zeros(3, device="cuda")
+    gts = {id(c): torch.from_numpy(c.image).cuda() for c in train_cams + test_cams}
+    # The kernel inputs of the first step and of the first eval view (after
+    # the steps, the two growth-check renders and the grown steps) are
+    # recorded as the path runs.
+    first_eval = SCENE_STEPS + 2 + SCENE_GROWN_STEPS
+    reset_launch_counts()
+    with recorded_frames(torch, (0, first_eval)) as rec:
 
         def steps(step, ts, it0, count):
             losses, ms, req = [], [], []
@@ -1598,32 +1619,32 @@ def scene_phase(torch, timer):
         psnrs = [r[2] for r in res]
         if not all(np.isfinite(r[0]).all() and np.isfinite(r[1:]).all() for r in res):
             raise AssertionError("eval sweep gave non-finite images or metrics")
-        counts = launch_counts()
-        # The first eval view's frame, after the counters are read.
-        eval_check = scene_kernel_checks(
-            torch, timer, captured_frame(torch, ts.gaussians, ts.net, test_cams[0], cfg, it),
-            cfg, "scene eval view", backward=False)
+    counts = launch_counts()
+    train_check = recorded_checks(torch, timer, rec, 0, counts, cfg, "scene train step",
+                                  backward=True)
+    eval_check = recorded_checks(torch, timer, rec, first_eval, counts, cfg, "scene eval view",
+                                 backward=False)
 
-        pc_dir = sc.point_cloud_dir(it)
-        ck_path = os.path.join(model, "ckpt_save", f"chkpnt_{it}.npz")
+    pc_dir = sc.point_cloud_dir(it)
+    ck_path = os.path.join(model, "ckpt_save", f"chkpnt_{it}.npz")
 
-        def save():
-            model_ply.save_ply(pc_dir, ts.gaussians, nets={"offset_model": ts.net.param_tree()})
-            checkpoint.save_checkpoint(ck_path, ts, it)
+    def save():
+        model_ply.save_ply(pc_dir, ts.gaussians, nets={"offset_model": ts.net.param_tree()})
+        checkpoint.save_checkpoint(ck_path, ts, it)
 
-        timed("save_ms", save)
-        fresh = training.grow_capacity(training.init_train_state(
-            init_from_points(pcd.points, pcd.colors, cap, cfg.model.sh_degree),
-            OffsetNet(init_offset_params(1, cfg.deform), cfg.deform, device="cuda"), seed=1),
-            2 * cap)
-        loaded, loaded_it = timed("load_ms", lambda: checkpoint.load_checkpoint(ck_path, fresh))
-        render = training.make_eval_render(cfg, **kw)
-        past_warmup = cfg.deform.warmup_iters  # so the reloaded net runs too
-        saved_img = render(ts.gaussians, ts.net, view, bg, past_warmup)
-        loaded_img = render(loaded.gaussians, loaded.net, view, bg, past_warmup)
-        if loaded_it != it or not torch.equal(saved_img, loaded_img):
-            raise AssertionError("the reloaded checkpoint renders another image")
-        files = sorted(os.listdir(pc_dir))
+    timed("save_ms", save)
+    fresh = training.grow_capacity(training.init_train_state(
+        init_from_points(pcd.points, pcd.colors, cap, cfg.model.sh_degree),
+        OffsetNet(init_offset_params(1, cfg.deform), cfg.deform, device="cuda"), seed=1),
+        2 * cap)
+    loaded, loaded_it = timed("load_ms", lambda: checkpoint.load_checkpoint(ck_path, fresh))
+    render = training.make_eval_render(cfg, **kw)
+    past_warmup = cfg.deform.warmup_iters  # so the reloaded net runs too
+    saved_img = render(ts.gaussians, ts.net, view, bg, past_warmup)
+    loaded_img = render(loaded.gaussians, loaded.net, view, bg, past_warmup)
+    if loaded_it != it or not torch.equal(saved_img, loaded_img):
+        raise AssertionError("the reloaded checkpoint renders another image")
+    files = sorted(os.listdir(pc_dir))
 
     want = {"composite_forward": SCENE_STEPS + SCENE_GROWN_STEPS + SCENE_TEST + 2,
             "composite_backward": SCENE_STEPS + SCENE_GROWN_STEPS}
@@ -1652,6 +1673,448 @@ def scene_phase(torch, timer):
             "alive_before": alive_before, "alive_after": alive_after,
             "growth_render_err": grow_err, "psnr": psnrs, "launches": counts,
             "kernel_checks": {"train_step": train_check, "eval_view": eval_check}}
+
+
+
+@contextlib.contextmanager
+def recorded_frames(torch, frames):
+    """Around a run of the main path: the kernel inputs of the given frames
+    (0-based, in the order of the composite forward calls; a frame's
+    binning makes two prefix fills and one place before it), cloned as
+    each wrapper received them, and the backward of each such forward (the
+    call that receives the forward's own splats).  The wrappers are swapped
+    where the path looks them up, and put back after.  Yields {"calls":
+    {wrapper: calls seen}, "frames": {frame: {"fills": [(name, pos, second
+    argument, K)], "composite_forward": (args, kwargs) or None,
+    "composite_backward": likewise}}}."""
+    from gs_deformable_tpu_torch.ops import binning as binning_mod
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp_mod
+
+    fills_per_frame = {"ordered_prefix_fill": 2, "ordered_place_i32": 1}
+    home = {"ordered_prefix_fill": binning_mod, "ordered_place_i32": binning_mod,
+            "composite_forward": comp_mod, "composite_backward": comp_mod}
+    rec = {"calls": dict.fromkeys(home, 0),
+           "frames": {f: {"fills": [], "composite_forward": None, "composite_backward": None,
+                          "splats": None} for f in frames}}
+    saved = {name: getattr(mod, name) for name, mod in home.items()}
+
+    class Kept:
+        def __init__(self, name):
+            self.name = name
+
+        # A wrapper counts its launches on its module-level name, which is
+        # this object while it is swapped in: the count stays the wrapper's.
+        @property
+        def launches(self):
+            return saved[self.name].launches
+
+        @launches.setter
+        def launches(self, n):
+            saved[self.name].launches = n
+
+        def __call__(self, *args, **kw):
+            name = self.name
+            k = rec["calls"][name]
+            rec["calls"][name] = k + 1
+
+            def clone():
+                return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+            if name in fills_per_frame:
+                f = rec["frames"].get(k // fills_per_frame[name])
+                if f is not None:
+                    f["fills"].append((name, *clone()))
+            elif name == "composite_forward":
+                f = rec["frames"].get(k)
+                if f is not None:
+                    f[name], f["splats"] = (clone(), dict(kw)), args[0]
+            else:
+                for f in rec["frames"].values():
+                    if f["splats"] is not None and args[0].data_ptr() == f["splats"].data_ptr():
+                        f[name], f["splats"] = (clone(), dict(kw)), None
+            return saved[name](*args, **kw)
+
+    for name, mod in home.items():
+        setattr(mod, name, Kept(name))
+    try:
+        yield rec
+    finally:
+        for name, mod in home.items():
+            setattr(mod, name, saved[name])
+
+
+def recorded_checks(torch, timer, rec, frame, counts, cfg, label, backward):
+    """``scene_kernel_checks`` on a frame that ``recorded_frames`` kept: the
+    fills and the forward on their recorded inputs and, for a train frame,
+    the backward on its recorded forward output and upstream gradient.
+    ``counts``: the launch counts of the run, which the recorder must have
+    seen all of."""
+    if rec["calls"] != counts:
+        raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
+    f = rec["frames"][frame]
+    names = [x[0] for x in f["fills"]]
+    if f["composite_forward"] is None or sorted(names) != (
+            ["ordered_place_i32"] + ["ordered_prefix_fill"] * 2):
+        raise AssertionError(f"{label}: recorded fills {names} and forward "
+                             f"{f['composite_forward'] is not None}")
+    (splats_t, start, count), kw = f["composite_forward"]
+    if kw != dict(grid_x=kw["grid_x"], **composite_kw(cfg)):
+        raise AssertionError(f"{label}: the composite ran with {kw}, the config gives "
+                             f"{composite_kw(cfg)}")
+    upstream = None
+    if backward:
+        if f["composite_backward"] is None:
+            raise AssertionError(f"{label}: no backward received the frame's splats")
+        (*tables, fwd_out, grad), bkw = f["composite_backward"]
+        if bkw != kw or not all(torch.equal(a, b) for a, b in zip(tables, (splats_t, start,
+                                                                           count))):
+            raise AssertionError(f"{label}: the backward's tables are not the forward's")
+        upstream = (fwd_out, grad)
+    binning = types.SimpleNamespace(tile_chunk_start=start, tile_count=count)
+    return scene_kernel_checks(torch, timer, (splats_t, binning, kw["grid_x"], f["fills"]),
+                               cfg, label, backward, upstream)
+
+
+def loss_by_iteration(timeline):
+    """{iteration: loss} from the trainer's "steps" records."""
+    out = {}
+    for rec in timeline:
+        if rec["stage"] == "steps":
+            its = range(rec["from"], rec["to"] + 1)
+            if len(its) != len(rec["losses"]):
+                raise AssertionError(f"steps record {rec['from']}-{rec['to']} holds "
+                                     f"{len(rec['losses'])} losses")
+            out.update(zip(its, rec["losses"]))
+    return out
+
+
+def trace_share(path, ranges):
+    """Device time of a torch.profiler chrome trace in ms: {"all", "forward"
+    (of the ``ranges``), "backward" (of their backward)} and, under
+    "kernels", the ranges' forward and backward time by kernel name.  A kernel (or copy,
+    or set) belongs to the op whose "External id" it carries; the op is in
+    the forward when a range encloses it on its thread, in the backward when
+    an autograd node encloses it (an event named "...Backward..." or
+    "autograd::engine::evaluate_function: ...") whose "Sequence number" one
+    of the ranges' ops took: the sequence numbers that a range's ops take
+    are those of the nodes that the range makes."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    cpu = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    parent = {}
+    threads = {}
+    for i, e in enumerate(cpu):
+        threads.setdefault((e["pid"], e["tid"]), []).append(i)
+    for idxs in threads.values():
+        idxs.sort(key=lambda i: (cpu[i]["ts"], -cpu[i]["dur"]))
+        stack = []
+        for i in idxs:
+            end = cpu[i]["ts"] + cpu[i]["dur"]
+            while stack and cpu[stack[-1]]["ts"] + cpu[stack[-1]]["dur"] < end - 1e-3:
+                stack.pop()
+            parent[i] = stack[-1] if stack else None
+            stack.append(i)
+
+    def chain(i):
+        while i is not None:
+            yield i
+            i = parent[i]
+
+    in_range = [any(cpu[j]["name"] in ranges for j in chain(i)) for i in range(len(cpu))]
+    seqs = {}  # range event -> sequence numbers its ops took
+    for i in range(len(cpu)):
+        n = cpu[i].get("args", {}).get("Sequence number")
+        if in_range[i] and n is not None:
+            top = next(j for j in chain(i) if cpu[j]["name"] in ranges)
+            seqs.setdefault(top, []).append(n)
+    spans = [(min(v), max(v)) for v in seqs.values()]
+
+    def node(e):
+        n = e.get("args", {}).get("Sequence number")
+        return (n is not None and ("Backward" in e["name"]
+                                   or e["name"].startswith("autograd::engine::evaluate_function"))
+                and any(lo <= n <= hi for lo, hi in spans))
+
+    side = {}
+    for i, e in enumerate(cpu):
+        ext = e.get("args", {}).get("External id")
+        if ext is not None:
+            side[ext] = ("forward" if in_range[i] else
+                         "backward" if any(node(cpu[j]) for j in chain(i)) else None)
+    total = {"all": 0.0, "forward": 0.0, "backward": 0.0}
+    kernels = {}
+    for e in device:
+        total["all"] += e["dur"] / 1e3
+        where = side.get(e.get("args", {}).get("External id"))
+        if where:
+            total[where] += e["dur"] / 1e3
+            key = f"{where}: {e['name'][:90]}"
+            kernels[key] = kernels.get(key, 0.0) + e["dur"] / 1e3
+    total["kernels"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1]))
+    return total
+
+
+def se3_share_of_step(torch, root, src, model, growths):
+    """The SE(3) net's and the gate's share of one train step's device time,
+    from the torch.profiler trace that the trainer's ``--profile_dir``
+    writes: ``train.main`` resumed from the checkpoint at CLI_ITERS - 10
+    (into another output directory) at the run's last instance capacity and
+    slack, 10 steps to the counter drain at CLI_ITERS, then the step at
+    CLI_ITERS + 1 traced.  ``deform_se3`` and ``opacity_mask_gate`` run
+    inside record_function ranges for this run (``trace_share``)."""
+    from gs_deformable_tpu_torch import train as train_cli
+    from gs_deformable_tpu_torch.models import deform as deform_mod
+
+    cap, slack = ((growths[-1]["capacity"], growths[-1]["aligned_slack"]) if growths
+                  else (None, None))
+    traced = CLI_ITERS + 1
+    prof_dir = os.path.join(root, "profile")
+    argv = ["-s", src, "-m", os.path.join(root, "cli_resumed"), "--deform_mode", "se3",
+            "--use_opacity_mask", "--eval", "--iterations", str(traced + 1),
+            "--warmup_iters", str(CLI_WARMUP), "--start_checkpoint",
+            os.path.join(model, "ckpt_save", f"chkpnt_{CLI_ITERS - 10}.npz"),
+            "--profile_dir", prof_dir, "--profile_start", str(traced), "--profile_steps", "1",
+            "--test_iterations", "-1", "--save_iterations", "-1", "--disable_viewer",
+            "--seed", "0", "--quiet"]
+    if cap is not None:
+        argv += ["--instance_capacity", str(cap), "--aligned_slack", str(slack)]
+    saved = deform_mod.deform_se3, deform_mod.opacity_mask_gate
+    ranges = ("se3_net", "opacity_gate")
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return call
+
+    deform_mod.deform_se3 = ranged(ranges[0], saved[0])
+    deform_mod.opacity_mask_gate = ranged(ranges[1], saved[1])
+    try:
+        train_cli.main(argv)
+    finally:
+        deform_mod.deform_se3, deform_mod.opacity_mask_gate = saved
+    t = trace_share(os.path.join(prof_dir, f"trace_{traced}.json"), ranges)
+    step_ms, fwd_ms, bwd_ms = t["all"], t["forward"], t["backward"]
+    for name, ms in list(t["kernels"].items())[:8]:
+        log(f"    {ms:8.4f} ms  {name}")
+    if not (fwd_ms > 0 and bwd_ms > 0 and fwd_ms + bwd_ms < step_ms):
+        raise AssertionError(f"the trace gives the se3 net and gate forward {fwd_ms} ms, "
+                             f"backward {bwd_ms} ms of a {step_ms} ms step")
+    return {"step_device_ms": step_ms, "se3_net_and_gate_forward_device_ms": fwd_ms,
+            "se3_net_and_gate_backward_device_ms": bwd_ms,
+            "se3_share_of_step": (fwd_ms + bwd_ms) / step_ms, "traced_iteration": traced,
+            "instance_capacity": cap, "aligned_slack": slack, "kernels_ms": t["kernels"]}
+
+
+def cli_phase(torch, timer, root):
+    """Phase 12: the port's trainer and render CLIs on phase 11's scene
+    (under ``root``), se3 deformation with the opacity gate."""
+    from gs_deformable_tpu_torch import render_cli, training, video, viewer
+    from gs_deformable_tpu_torch import train as train_cli
+    from gs_deformable_tpu_torch.io import checkpoint, model_ply
+    from gs_deformable_tpu_torch.models.deform import SE3Net
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    src, model = os.path.join(root, "scene"), os.path.join(root, "cli_model")
+    last, ckpt_its = CLI_ITERS, (CLI_ITERS - 10, CLI_ITERS)
+    argv = ["-s", src, "-m", model, "--deform_mode", "se3", "--use_opacity_mask", "--eval",
+            "--iterations", str(last), "--warmup_iters", str(CLI_WARMUP),
+            "--checkpoint_iterations", *map(str, ckpt_its), "--save_iterations", str(last),
+            "--test_iterations", str(last), "--ip", "127.0.0.1", "--port", "0",
+            "--seed", "0", "--quiet"]
+    log(f"  train.main({' '.join(argv)})")
+    timeline = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_frames(torch, (last - 1,)) as step_rec:  # frame i - 1: iteration i's step
+        train_cli.main(argv, timeline)
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = launch_counts()
+    viewer_bound = viewer._listener is not None
+    viewer.close()
+    report_views = min(SCENE_TEST, 20) + min(SCENE_TRAIN, 5)
+    want = {"composite_forward": last + report_views, "composite_backward": last}
+    want["ordered_prefix_fill"] = 2 * want["composite_forward"]
+    want["ordered_place_i32"] = want["composite_forward"]
+    log(f"  trained {last} iterations in {train_s:.1f} s; the viewer's socket "
+        f"{'bound' if viewer_bound else 'did not bind'}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"trainer launches {counts}, expected {want} ({last} steps and "
+                             f"{report_views} report views)")
+
+    # (a) the run learns and writes the JAX CLI's layout.
+    loss = loss_by_iteration(timeline)
+    if sorted(loss) != list(range(1, last + 1)):
+        raise AssertionError("the trainer's records miss some iterations' losses")
+    first = [loss[i] for i in range(CLI_WARMUP, CLI_WARMUP + 20)]
+    final = [loss[i] for i in range(last - 19, last + 1)]
+    if not np.isfinite(list(loss.values())).all() or not np.mean(final) < np.mean(first):
+        raise AssertionError(f"loss did not fall: first 20 after warmup {first}, last 20 {final}")
+    layout = ["cfg_args", "cameras.json", "input.ply",
+              *(f"ckpt_save/chkpnt_{i}.npz" for i in ckpt_its),
+              f"point_cloud/iteration_{last}/point_cloud.ply",
+              *(f"point_cloud/iteration_{last}/{n}.npz" for n in model_ply.NET_FILES)]
+    missing = [f for f in layout if not os.path.exists(os.path.join(model, f))]
+    if missing:
+        raise AssertionError(f"output layout misses {missing}")
+
+    # (e) instance overflow grows the capacity and carries the run through.
+    growths = [r for r in timeline if r["stage"] == "instance_growth"]
+    for r in growths:
+        log(f"  instance growth at iteration {r['iteration']}: required {r['required']} "
+            f"(aligned {r['required_aligned']}) -> capacity {r['capacity']}, slack "
+            f"{r['aligned_slack']}")
+    overflowed = sum(r.get("overflow", 0) for r in timeline if r["stage"] == "steps")
+    log(f"  {len(growths)} instance growth(s); {overflowed} frame(s) truncated before a growth")
+
+    # The render CLI over both sets, its state, its image of the first test
+    # view and that view's kernel inputs recorded as it ran.
+    cli = {}
+    real_render_set, real_png = render_cli.render_set, render_cli._png
+    first_png = os.path.join(model, "test", f"ours_{last}", "renders", "00000.png")
+
+    def render_set(model_path, name, iteration, cams, ts, cfg, active_sh, bg, **kw):
+        cli[name] = {"cams": cams, "ts": ts, "cfg": cfg, "active_sh": active_sh, "bg": bg}
+        return real_render_set(model_path, name, iteration, cams, ts, cfg, active_sh, bg, **kw)
+
+    def png(img, path):
+        if path == first_png:
+            cli["image"] = img.copy()
+        real_png(img, path)
+
+    render_cli.render_set, render_cli._png = render_set, png
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with recorded_frames(torch, (SCENE_TRAIN,)) as view_rec:  # train views render first
+            psnrs = render_cli.main(["-m", model, "--quiet"])
+            torch.cuda.synchronize()
+    finally:
+        render_cli.render_set, render_cli._png = real_render_set, real_png
+    render_s = time.perf_counter() - t0
+    rcounts = launch_counts()
+    views = SCENE_TRAIN + SCENE_TEST
+    rwant = {"composite_forward": views, "composite_backward": 0,
+             "ordered_prefix_fill": 2 * views, "ordered_place_i32": views}
+    if rcounts != rwant:
+        raise AssertionError(f"render CLI launches {rcounts}, expected {rwant}")
+    test_dir = os.path.join(model, "test", f"ours_{last}")
+    for sub in ("renders", "gt"):
+        if len(os.listdir(os.path.join(test_dir, sub))) != SCENE_TEST:
+            raise AssertionError(f"render CLI wrote {os.listdir(os.path.join(test_dir, sub))}")
+    if not np.isfinite(psnrs["test"]).all():
+        raise AssertionError(f"render CLI PSNRs {psnrs}")
+
+    # (b) the render CLI's own image of the first test view (its PLY and five
+    # nets) against the checkpoint at `last` through the same eval path.
+    test = cli["test"]
+    cfg, ts_cli, view = test["cfg"], test["ts"], test["cams"][0]
+    if not isinstance(ts_cli.net, SE3Net) or sorted(ts_cli.latent) != sorted(
+            model_ply.LATENT_FILES):
+        raise AssertionError(f"the render CLI restored {type(ts_cli.net)}, "
+                             f"{sorted(ts_cli.latent)}")
+    ck, ck_it = checkpoint.load_checkpoint(os.path.join(model, "ckpt_save", f"chkpnt_{last}.npz"),
+                                           _cli_template(torch, training, cfg, src, model, last))
+    batch = training.make_eval_render_batch(
+        cfg, width=view.width, height=view.height, tan_fovx=view.tan_fovx,
+        tan_fovy=view.tan_fovy, active_sh_degree=test["active_sh"], device="cuda")
+
+    def first_view(ts):
+        return training.eval_sweep(lambda c: batch, ts, [view],
+                                   lambda c: train_cli.cam_arrays(c, "cuda"),
+                                   lambda c: c.image, test["bg"], render_cli.FINAL,
+                                   batch=1)[0][0]
+
+    img_ck = first_view(ck)
+    if (ck_it != last or not np.isfinite(img_ck).all()
+            or not np.array_equal(cli["image"], img_ck)):
+        raise AssertionError(f"the render CLI's image differs from the checkpoint's at {ck_it}: "
+                             f"max diff {float(np.abs(cli['image'] - img_ck).max())}")
+    pert = dict(ts_cli.latent)
+    pert["opacity_mask"] = type(pert["opacity_mask"])(
+        {g: [{k: a + 0.5 for k, a in layer.items()} for layer in layers]
+         for g, layers in pert["opacity_mask"].numpy_params().items()},
+        cfg.deform, device="cuda")
+    pert_diff = float(np.abs(first_view(dataclasses.replace(ts_cli, latent=pert))
+                             - cli["image"]).max())
+    if not pert_diff > 1e-6:
+        raise AssertionError("a perturbed opacity_mask net leaves the image unchanged")
+    log(f"  reload: the render CLI's image of the first test view (PLY at capacity "
+        f"{ts_cli.gaussians.capacity}, five nets) is bitwise the checkpoint's at {last} "
+        f"(capacity {ck.gaussians.capacity}); a perturbed opacity_mask net moves it by "
+        f"{pert_diff:.3g}")
+
+    # (c) the kernels on the inputs their wrappers received in the runs: the
+    # step at `last` and the render CLI's first test view.
+    step_check = recorded_checks(torch, timer, step_rec, last - 1, counts, cfg,
+                                 "se3 train step", backward=True)
+    view_check = recorded_checks(torch, timer, view_rec, SCENE_TRAIN, rcounts, cfg,
+                                 "render-CLI view", backward=False)
+
+    t0 = time.perf_counter()
+    vid = video.frames_to_video(os.path.join(test_dir, "renders"),
+                                os.path.join(root, "test.mp4"), fps=10)
+    video_s = time.perf_counter() - t0
+    if os.path.getsize(vid) == 0:
+        raise AssertionError("empty video")
+
+    share = se3_share_of_step(torch, root, src, model, growths)
+
+    def stage_ms(name):
+        return float(sum(r["ms"] for r in timeline if r["stage"] == name))
+
+    def step_ms(lo, hi):
+        recs = [r for r in timeline if r["stage"] == "steps" and lo <= r["from"]
+                and r["to"] <= hi and r["to"] > r["from"]]
+        return float(np.median([r["ms"] / (r["to"] - r["from"] + 1) for r in recs]))
+
+    times = {"scene_load_ms": stage_ms("scene_load"), "init_ms": stage_ms("init"),
+             "ms_per_step_warmup": step_ms(11, CLI_WARMUP - 1),
+             "ms_per_step_se3": step_ms(CLI_WARMUP + 10, last),
+             "step_device_ms": share["step_device_ms"],
+             "se3_net_and_gate_device_ms": (share["se3_net_and_gate_forward_device_ms"]
+                                            + share["se3_net_and_gate_backward_device_ms"]),
+             "se3_share_of_step": share["se3_share_of_step"],
+             "densify_ms": stage_ms("densify"), "test_report_ms": stage_ms("test_report"),
+             "save_ms": stage_ms("save"), "checkpoint_ms": stage_ms("checkpoint"),
+             "render_cli_ms_per_view": render_s * 1e3 / views, "video_ms": video_s * 1e3,
+             "train_s": train_s}
+    dens = [r for r in timeline if r["stage"] == "densify"]
+    log(f"  loss, mean of iterations {CLI_WARMUP}-{CLI_WARMUP + 19} {np.mean(first):.5f} -> "
+        f"{last - 19}-{last} {np.mean(final):.5f}; densify {dens}")
+    log(f"  render CLI: {views} views, test PSNR mean {np.mean(psnrs['test']):.3f}; "
+        f"video {os.path.basename(vid)} {os.path.getsize(vid)} bytes")
+    log(f"  profiled step {share['traced_iteration']} (resumed from {last - 10}, instance "
+        f"capacity {share['instance_capacity']}): device "
+        f"{share['step_device_ms']:.4g} ms, the se3 net and gate forward "
+        f"{share['se3_net_and_gate_forward_device_ms']:.4g} ms and backward "
+        f"{share['se3_net_and_gate_backward_device_ms']:.4g} ms of it")
+    for k, v in times.items():
+        log(f"  stage {k}: {v:.4g}")
+    return {"iterations": last, "warmup": CLI_WARMUP, "argv": argv, "launches": counts,
+            "render_launches": rcounts, "viewer_bound": viewer_bound, "times": times,
+            "se3_profile": share,
+            "loss_first_20": first, "loss_last_20": final, "growths": growths,
+            "overflowed_frames": overflowed, "densify": dens,
+            "reload_capacity": ts_cli.gaussians.capacity, "checkpoint_capacity":
+            ck.gaussians.capacity, "perturbed_gate_diff": pert_diff, "psnr": psnrs,
+            "video": os.path.basename(vid),
+            "kernel_checks": {"train_step": step_check, "render_view": view_check}}
+
+
+def _cli_template(torch, training, cfg, src, model, it):
+    """A train state shaped as the trainer's checkpoint at ``it``: its
+    capacity read from the file."""
+    from gs_deformable_tpu_torch.models.gaussians import init_from_points
+
+    with np.load(os.path.join(model, "ckpt_save", f"chkpnt_{it}.npz")) as f:
+        cap = f[".gaussians/.xyz"].shape[0]
+    pts = np.random.default_rng(0).uniform(0, 1, (8, 3)).astype(np.float32)
+    state = init_from_points(pts, pts, cap, cfg.model.sh_degree)
+    net, latent = training.init_nets(cfg, 3, "cuda")
+    return training.init_train_state(state, net, 0, latent)
 
 
 def main():
@@ -1782,9 +2245,16 @@ def main():
     phase("phase 10: packed vs mixed, rows 5 and 6 vs their plain versions, packed sort")
     packed, pfwd, pbwd = packed_checks(torch, timer)
 
-    phase(f"phase 11: scene to model: a {SCENE_SIZE}x{SCENE_SIZE} D-NeRF scene on disk, "
-        f"Scene, init_from_points, train with densify, reset and growth, eval, save, reload")
-    scene_rec = scene_phase(torch, timer)
+    with tempfile.TemporaryDirectory() as root:
+        phase(f"phase 11: scene to model: a {SCENE_SIZE}x{SCENE_SIZE} D-NeRF scene on disk, "
+              f"Scene, init_from_points, train with densify, reset and growth, eval, save, "
+              f"reload")
+        scene_rec = scene_phase(torch, timer, root)
+        phase(f"phase 12: the trainer and render CLIs on phase 11's scene: se3 with the "
+              f"opacity gate, {CLI_ITERS} iterations, warmup {CLI_WARMUP}")
+        cli_rec = cli_phase(torch, timer, root)
+    log("  (d) a reduced se3 + gate step, card vs CPU:")
+    cli_rec["reduced_step"] = reduced_step_check(torch, deform_mode="se3", use_opacity_mask=True)
 
     def total(key, recs):
         return sum(r[key] for r in recs)
@@ -1792,7 +2262,8 @@ def main():
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
-    # "launches_render": the render path of phase 3.
+    # "launches_render": the render path of phase 3; "launches_cli": the
+    # trainer CLI's run of phase 12.
     kernels = [
         {"name": "composite_forward", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
@@ -1800,6 +2271,7 @@ def main():
          "launches": train_counts["composite_forward"],
          "launches_render": counts["composite_forward"],
          "launches_chunked": chunk_counts["composite_forward"],
+         "launches_cli": cli_rec["launches"]["composite_forward"],
          "max_abs_err": max(comp["max_abs_err"], bwd["forward_rgb_max_abs_err"],
                             bwd["forward_final_t_max_abs_err"]),
          "ms": comp["ms"], "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
@@ -1807,14 +2279,16 @@ def main():
          "blocks_per_sm": occupancy["composite_forward"], "calls": [comp]},
         *fill_entries(front, relay, place, train_fill, {
             k: {"launches": train_counts[k], "launches_render": counts[k],
-                "launches_chunked": chunk_counts[k]}
+                "launches_chunked": chunk_counts[k], "launches_cli": cli_rec["launches"][k]}
             for k in ("ordered_prefix_fill", "ordered_place_i32")}),
         {"name": "composite_backward", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "gs_deformable_tpu/ops/pallas/stream_composite.py:168",
          "launches": train_counts["composite_backward"],
          "launches_render": counts["composite_backward"],
-         "launches_chunked": chunk_counts["composite_backward"], "max_abs_err": bwd["max_abs_err"],
+         "launches_chunked": chunk_counts["composite_backward"],
+         "launches_cli": cli_rec["launches"]["composite_backward"],
+         "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": None,
          "blocks_per_sm": occupancy["composite_backward"], "calls": [bwd]},
@@ -1840,7 +2314,7 @@ def main():
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
-        "scene": scene_rec, "kernels": kernels, "breakdown": breakdown,
+        "scene": scene_rec, "cli": cli_rec, "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)

@@ -31,8 +31,8 @@ class ModelConfig:
     resolution: int = -1
     white_background: bool = False
     eval: bool = False
-    # "offset" (the 4-head additive net) or "none" (static scene); "se3"
-    # is not ported yet.
+    # "offset" (the 4-head additive net), "se3" (per-gaussian rigid
+    # transforms of the means) or "none" (static scene).
     deform_mode: str = "offset"
     use_opacity_mask: bool = False
     random_init_points: int = 100_000
@@ -151,7 +151,7 @@ class Config:
 
 
 _LATER = {
-    "se3": "the deformation-variants slice (SE(3) and latent nets)",
+    "mesh": "the mesh slice (data and model axes across cards)",
 }
 
 
@@ -181,14 +181,12 @@ def check_raster(cfg: RasterizeConfig) -> None:
 def check_supported(cfg: Config) -> None:
     """Raise for any knob of ``cfg`` this port does not implement yet."""
     check_raster(cfg.raster)
-    if cfg.model.deform_mode == "se3":
-        raise NotImplementedError(
-            f"deform_mode='se3' arrives with {_LATER['se3']}")
-    if cfg.model.deform_mode not in ("offset", "none"):
+    if cfg.model.deform_mode not in ("offset", "se3", "none"):
         raise ValueError(f"unknown deform_mode {cfg.model.deform_mode!r}")
-    if cfg.model.use_opacity_mask:
+    if cfg.parallel.data_axis > 1 or cfg.parallel.model_axis > 1:
         raise NotImplementedError(
-            f"use_opacity_mask arrives with {_LATER['se3']}")
+            f"parallel data_axis {cfg.parallel.data_axis} / model_axis "
+            f"{cfg.parallel.model_axis} arrive with {_LATER['mesh']}")
     if cfg.deform.compute_dtype not in ("bfloat16", "float32", "float32_3x"):
         raise ValueError(
             f"unknown deform.compute_dtype {cfg.deform.compute_dtype!r}")

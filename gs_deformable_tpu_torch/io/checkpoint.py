@@ -2,13 +2,14 @@
 
 Port of ``gs_deformable_tpu/io/checkpoint.py``.  Keys are the JAX
 package's tree paths wherever the two states share a field:
-``.gaussians/.xyz``, ``.deform/['layers']/[0]/['w']``,
-``.adam/.mu/['offset_model']/['heads']/[0]/['b']``, ``.adam/.step``, and
-``__iteration__``.  The port writes its generator's state under
-``.generator/<device type>`` and has no ``.key`` or ``.latent`` leaves;
-loading keeps the template's value for every key the file lacks and
-ignores keys the template lacks, as the JAX loader does, so a file written
-by either package loads in the other.
+``.gaussians/.xyz``, ``.deform/['layers']/[0]/['w']`` (the offset or
+SE(3) net), ``.latent/['opacity_mask']/['heads']/[0]/['w']`` (the latent
+heads), ``.adam/.mu/['offset_model']/['heads']/[0]/['b']``, ``.adam/.step``,
+and ``__iteration__``.  The port writes its generator's state under
+``.generator/<device type>`` and has no ``.key`` leaf; loading keeps the
+template's value for every key the file lacks and ignores keys the
+template lacks, as the JAX loader does, so a file written by either
+package loads in the other.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.deform import OffsetNet
+from ..models.deform import rebuild
 from ..models.gaussians import AdamState, GaussianState
 from ..training import TrainState
 from .model_ply import map_tree, to_numpy
@@ -39,6 +40,8 @@ def _items(ts: TrainState) -> Dict[str, torch.Tensor]:
 
     if ts.net is not None:
         map_tree(ts.net.param_tree(), put, ".deform")
+    if ts.latent is not None:
+        map_tree({k: m.param_tree() for k, m in ts.latent.items()}, put, ".latent")
     map_tree(ts.adam.mu, put, ".adam/.mu")
     map_tree(ts.adam.nu, put, ".adam/.nu")
     flat[".adam/.step"] = ts.adam.step
@@ -71,11 +74,15 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, int]:
         g = template.gaussians
         gaussians = GaussianState(**{f.name: restore(f".gaussians/.{f.name}", getattr(g, f.name))
                                      for f in dataclasses.fields(g)})
-        net = None
-        if template.net is not None:
-            params = map_tree(template.net.param_tree(), restore, ".deform")
-            net = OffsetNet(map_tree(params, lambda _, t: t.cpu().numpy()), template.net.cfg,
-                            device=g.xyz.device)
+
+        def restore_net(net, prefix):
+            params = map_tree(net.param_tree(), lambda k, t: restore(k, t).cpu().numpy(),
+                              prefix)
+            return rebuild(net, params, g.xyz.device)
+
+        net = None if template.net is None else restore_net(template.net, ".deform")
+        latent = None if template.latent is None else {
+            k: restore_net(m, f".latent/['{k}']") for k, m in template.latent.items()}
         adam = AdamState(mu=map_tree(template.adam.mu, restore, ".adam/.mu"),
                          nu=map_tree(template.adam.nu, restore, ".adam/.nu"),
                          step=restore(".adam/.step", template.adam.step))
@@ -84,4 +91,4 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, int]:
         generator.set_state(torch.from_numpy(data[gen_key]) if gen_key in data
                             else template.generator.get_state())
         iteration = int(data["__iteration__"])
-    return TrainState(gaussians, net, adam, generator), iteration
+    return TrainState(gaussians, net, adam, generator, latent), iteration

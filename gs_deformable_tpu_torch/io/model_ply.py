@@ -3,26 +3,41 @@
 PLY schema: x,y,z,nx,ny,nz,f_dc_0..2,f_rest_0..(3(K-1)-1),opacity,
 scale_0..2,rot_0..3 with channel-major features.  The nets sit beside the
 PLY as ``<name>.npz`` with keys like ``['layers']/[0]/['w']`` (the JAX
-pytree paths), so a file written by either package loads in the other.
+pytree paths), so a file written by either package loads in the other:
+``offset_model`` (the offset or SE(3) net), then the latent heads
+``offset_model_rot``, ``offset_model_scaling``, ``opacity_mask`` and
+``shs_model``.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
 
 from .. import device as device_rules
 from ..config import DeformConfig
-from ..models.deform import OffsetNet
+from ..models.deform import DeformMLP, OffsetNet, SE3Net
 from ..models.gaussians import GaussianState
 from .ply import read_ply, write_ply
 
 NET_FILES = ("offset_model", "offset_model_rot", "offset_model_scaling", "opacity_mask",
              "shs_model")
+# The latent head each file after "offset_model" holds (render_cli.py:146-151).
+LATENT_FILES = {"rot": "offset_model_rot", "scaling": "offset_model_scaling",
+                "opacity_mask": "opacity_mask", "shs": "shs_model"}
+
+
+def nets_dict(net: Optional[DeformMLP], latent: Optional[Dict[str, DeformMLP]]) -> dict:
+    """``save_ply``'s ``nets``: the deformation net as "offset_model" and each
+    latent head under its file name (train.py:420-427 of the JAX package)."""
+    nets = {"offset_model": None if net is None else net.param_tree()}
+    for key, name in LATENT_FILES.items():
+        nets[name] = None if latent is None else latent[key].param_tree()
+    return nets
 
 
 def map_tree(tree: Any, fn: Callable[[str, Any], Any], prefix: str = "") -> Any:
@@ -129,7 +144,7 @@ _KEY = re.compile(r"\['(layers|heads)'\]/\[(\d+)\]/\['(w|b)'\]")
 
 
 def load_net_params(path: str) -> dict:
-    """A saved offset net (.npz) as the numpy pytree ``{"layers", "heads"}``."""
+    """A saved net (.npz) as the numpy pytree ``{"layers", "heads"}``."""
     tree = {"layers": {}, "heads": {}}
     with np.load(path) as data:
         for key in data.files:
@@ -141,7 +156,23 @@ def load_net_params(path: str) -> dict:
     return {g: [tree[g][i] for i in sorted(tree[g])] for g in ("layers", "heads")}
 
 
-def load_net(path: str, cfg: DeformConfig = DeformConfig(), device="cuda") -> OffsetNet:
-    """A saved offset net (.npz written by the JAX package) as an ``OffsetNet``."""
-    dev = device_rules.resolve(device)
-    return OffsetNet(load_net_params(path), cfg, device=dev)
+def load_net(path: str, cfg: DeformConfig = DeformConfig(), device="cuda", *,
+             kind: Type[DeformMLP]) -> DeformMLP:
+    """A saved net (.npz written by either package) as the class ``kind``:
+    ``OffsetNet``, ``SE3Net``, or ``DeformMLP`` for a latent head (without
+    gradient)."""
+    net = kind(load_net_params(path), cfg, device=device_rules.resolve(device))
+    return net if kind in (OffsetNet, SE3Net) else net.requires_grad_(False)
+
+
+def load_latent(directory: str, latent: Dict[str, DeformMLP],
+                device="cuda") -> Tuple[Dict[str, DeformMLP], int]:
+    """``latent`` with each head whose file exists in ``directory`` replaced
+    by the file's weights; (heads, the number of files read)."""
+    out, n = dict(latent), 0
+    for key, name in LATENT_FILES.items():
+        path = os.path.join(directory, f"{name}.npz")
+        if os.path.exists(path):
+            out[key] = load_net(path, latent[key].cfg, device, kind=DeformMLP)
+            n += 1
+    return out, n

@@ -1,9 +1,19 @@
-"""The time-conditioned offset network (port of ``gs_deformable_tpu/models/deform.py``).
+"""Time-conditioned deformation networks (port of ``gs_deformable_tpu/models/deform.py``).
 
-``OffsetNet`` is the active 4-head ``DirectTemporalNeRF``: posenc(xyz) (63)
-and posenc(t) (21) -> 8 ReLU layers of width 256, with the encoded xyz
-re-concatenated in front after layer 4 -> heads dx (3), d_scale (3),
-d_rot (4), d_shs (48), run as one concatenated matmul.
+``DeformMLP`` is the shared trunk of every net: ``forward(x, t)`` runs
+cat(x, t) through ``depth`` ReLU layers of width ``width``, with ``x``
+re-concatenated in front after each layer in ``skips``, then all heads as
+one concatenated matmul.  The nets built on it:
+
+- ``OffsetNet``, the active 4-head ``DirectTemporalNeRF``: posenc(xyz) (63)
+  and posenc(t) (21) in, posenc(xyz) as the skip input; heads dx (3),
+  d_scale (3), d_rot (4), d_shs (48);
+- ``SE3Net``: raw xyz and t (3 + 1) in, xyz as the skip input; heads
+  w (3), v (3), integrated by ``deform_se3`` into a rigid transform;
+- the four latent heads of ``init_latent_params``: rot, scaling,
+  opacity_mask and shs.  They take no gradient and no Adam step (the JAX
+  step closes over them); only ``opacity_mask`` is used, as the
+  multiplicative gate of ``opacity_mask_gate``.
 
 Weights keep the JAX orientation: ``w`` is (in, out) and a layer is
 ``x @ w + b``.  Compute tiers:
@@ -19,14 +29,16 @@ Weights keep the JAX orientation: ``w`` is (in, out) and a layer is
   transposed products (fp32 sums), as JAX's ``_bf16_mm`` (deform.py:71-104);
 - "float32_3x" runs as "float32".
 
-The warmup gate is a Python ``if`` on ``iteration``: during warmup the net
-is not run and gets no gradient.
+The offset and SE(3) nets run in the config's tier.  The opacity gate runs
+in fp32 whatever the config says, as JAX's does (deform.py:388 passes no
+compute dtype).  The warmup gates are a Python ``if`` on ``iteration``:
+during warmup the nets are not run and get no gradient.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +46,9 @@ from torch import nn
 
 from .. import device as device_rules
 from ..config import DeformConfig
+from ..ops import rigid
+
+LATENT_HEADS = ("rot", "scaling", "opacity_mask", "shs")
 
 
 def posenc_dim(multires: int, input_dims: int) -> int:
@@ -50,16 +65,16 @@ def posenc(x: torch.Tensor, multires: int) -> torch.Tensor:
     return torch.cat(feats, dim=-1)
 
 
-def init_offset_params(seed: int, cfg: DeformConfig = DeformConfig()) -> Dict[str, list]:
-    """Numpy weights in the JAX pytree layout ``{"layers": [...], "heads": [...]}``.
+def init_mlp_params(rng: np.random.Generator, in_dim: int, skip_dim: int,
+                    head_dims: Sequence[int], depth: int, width: int,
+                    skips: Sequence[int]) -> Dict[str, list]:
+    """Numpy weights of one trunk and its heads in the JAX pytree layout
+    ``{"layers": [...], "heads": [...]}``, drawn from ``rng`` layer by layer.
 
-    torch's nn.Linear default init (kaiming-uniform a=sqrt(5) weights,
-    uniform +-1/sqrt(fan_in) biases), drawn from ``numpy.random.default_rng(seed)``.
+    torch's nn.Linear default init: kaiming-uniform a=sqrt(5) weights,
+    uniform +-1/sqrt(fan_in) biases.  Layer i > 0 takes ``width`` inputs,
+    plus ``skip_dim`` after a layer in ``skips``.
     """
-    rng = np.random.default_rng(seed)
-    in_dim = posenc_dim(cfg.multires_xyz, 3) + posenc_dim(cfg.multires_time, 1)
-    skip_dim = posenc_dim(cfg.multires_xyz, 3)
-
     def linear(fan_in, fan_out):
         bw = math.sqrt(6.0 / fan_in) / math.sqrt(2.0)
         bb = 1.0 / math.sqrt(fan_in)
@@ -67,11 +82,40 @@ def init_offset_params(seed: int, cfg: DeformConfig = DeformConfig()) -> Dict[st
                 "b": rng.uniform(-bb, bb, (fan_out,)).astype(np.float32)}
 
     layers, fan_in = [], in_dim
-    for i in range(cfg.depth):
-        layers.append(linear(fan_in, cfg.width))
-        fan_in = cfg.width + (skip_dim if i in cfg.skips else 0)
-    heads = [linear(cfg.width, d) for d in (3, 3, 4, cfg.sh_coeffs * 3)]
-    return {"layers": layers, "heads": heads}
+    for i in range(depth):
+        layers.append(linear(fan_in, width))
+        fan_in = width + (skip_dim if i in skips else 0)
+    return {"layers": layers, "heads": [linear(width, d) for d in head_dims]}
+
+
+def init_offset_params(seed: int, cfg: DeformConfig = DeformConfig()) -> Dict[str, list]:
+    """The offset net's numpy weights, from ``numpy.random.default_rng(seed)``."""
+    skip_dim = posenc_dim(cfg.multires_xyz, 3)
+    return init_mlp_params(np.random.default_rng(seed),
+                           skip_dim + posenc_dim(cfg.multires_time, 1), skip_dim,
+                           (3, 3, 4, cfg.sh_coeffs * 3), cfg.depth, cfg.width, cfg.skips)
+
+
+def init_se3_params(seed: int, cfg: DeformConfig = DeformConfig()) -> Dict[str, list]:
+    """The SE(3) net's numpy weights (deform.py:305-310): raw xyz and t in,
+    no positional encoding, heads w (3) and v (3)."""
+    return init_mlp_params(np.random.default_rng(seed), 3 + 1, 3, (3, 3), cfg.depth,
+                           cfg.width, cfg.skips)
+
+
+def init_latent_params(seed: int, cfg: DeformConfig = DeformConfig()) -> Dict[str, dict]:
+    """The four latent heads' numpy weights (deform.py:358-370), drawn in
+    the order rot, scaling, opacity_mask, shs from one generator."""
+    rng = np.random.default_rng(seed)
+    te = posenc_dim(cfg.multires_time, 1)
+    shapes = {
+        "rot": (7 + te, 7, (4,), 3),  # xyz + quaternion, posenc(t)
+        "scaling": (6 + 1, 6, (3,), cfg.depth),  # xyz + scale, t
+        "opacity_mask": (3 + 1, 3, (1,), cfg.depth),
+        "shs": (3 + 1, 3, (cfg.sh_coeffs * 3,), cfg.depth),
+    }
+    return {k: init_mlp_params(rng, in_dim, skip, heads, depth, cfg.width, cfg.skips)
+            for k, (in_dim, skip, heads, depth) in shapes.items()}
 
 
 class _Dense(nn.Module):
@@ -110,8 +154,20 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, tier: str) -> torch.Tensor:
     return x @ w
 
 
-class OffsetNet(nn.Module):
-    """DirectTemporalNeRF offset net; ``forward(xyz, t)`` -> (dx, d_scale, d_rot, d_shs)."""
+def config_tier(cfg: DeformConfig) -> str:
+    """The matmul tier ``cfg.compute_dtype`` selects (see the module)."""
+    if cfg.compute_dtype == "bfloat16":
+        return "bfloat16_bwd" if cfg.bf16_cotangents else "bfloat16"
+    return "float32"
+
+
+class DeformMLP(nn.Module):
+    """One trunk and its heads; ``forward(x, t, tier)`` -> one tensor per head.
+
+    ``x`` is the skip input: it goes in first and is re-concatenated in
+    front after each layer in ``cfg.skips``.  ``params`` is the JAX pytree
+    ``{"layers": [{"w", "b"}...], "heads": [...]}`` with numpy leaves.
+    """
 
     def __init__(self, params: Dict[str, list], cfg: DeformConfig = DeformConfig(),
                  device="cuda"):
@@ -130,18 +186,16 @@ class OffsetNet(nn.Module):
     def head_dims(self) -> List[int]:
         return [h.w.shape[1] for h in self.heads]
 
-    def forward(self, xyz: torch.Tensor, t: torch.Tensor,
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
                 tier: str = "float32") -> Tuple[torch.Tensor, ...]:
         """``tier``: "float32", "bfloat16" or "bfloat16_bwd" (see module)."""
         if tier not in ("float32", "bfloat16", "bfloat16_bwd"):
             raise ValueError(f"unknown tier {tier!r}")
-        xe = posenc(xyz, self.cfg.multires_xyz)
-        te = posenc(t, self.cfg.multires_time)
-        h = torch.cat([xe, te], dim=-1)
+        h = torch.cat([x, t], dim=-1)
         for i, layer in enumerate(self.layers):
             h = torch.relu(layer(h, tier))
             if i in self.cfg.skips:
-                h = torch.cat([xe, h], dim=-1)
+                h = torch.cat([x, h], dim=-1)
         wcat = torch.cat([hd.w for hd in self.heads], dim=1)
         bcat = torch.cat([hd.b for hd in self.heads], dim=0)
         out = _matmul(h, wcat, tier) + bcat
@@ -162,6 +216,35 @@ class OffsetNet(nn.Module):
         return {"layers": tree(self.layers), "heads": tree(self.heads)}
 
 
+class OffsetNet(DeformMLP):
+    """DirectTemporalNeRF offset net; ``forward(xyz, t)`` -> (dx, d_scale, d_rot, d_shs)."""
+
+    def forward(self, xyz: torch.Tensor, t: torch.Tensor,
+                tier: str = "float32") -> Tuple[torch.Tensor, ...]:
+        return super().forward(posenc(xyz, self.cfg.multires_xyz),
+                               posenc(t, self.cfg.multires_time), tier)
+
+
+class SE3Net(DeformMLP):
+    """DirectTemporalNeRF_se3; ``forward(xyz, t)`` -> (w, v) on raw inputs."""
+
+
+def make_latent_heads(params: Dict[str, dict], cfg: DeformConfig = DeformConfig(),
+                      device="cuda") -> Dict[str, DeformMLP]:
+    """The four latent heads as ``DeformMLP``s whose parameters take no
+    gradient (``requires_grad`` off), from ``init_latent_params`` or JAX's
+    ``make_latent_heads`` as numpy."""
+    heads = {}
+    for k in LATENT_HEADS:
+        heads[k] = DeformMLP(params[k], cfg, device=device).requires_grad_(False)
+    return heads
+
+
+def _time_column(time, xyz: torch.Tensor) -> torch.Tensor:
+    t = torch.as_tensor(time, dtype=torch.float32, device=xyz.device).reshape(-1, 1)
+    return t.expand(xyz.shape[0], 1)
+
+
 def deform_offsets(net: OffsetNet, xyz: torch.Tensor, time, iteration: int,
                    cfg: DeformConfig = DeformConfig()):
     """(dx, d_scale, d_rot, d_shs); all zeros, MLP skipped, while iteration < warmup."""
@@ -169,9 +252,39 @@ def deform_offsets(net: OffsetNet, xyz: torch.Tensor, time, iteration: int,
     if int(iteration) < cfg.warmup_iters:
         z = xyz.new_zeros
         return z((n, 3)), z((n, 3)), z((n, 4)), z((n, cfg.sh_coeffs * 3))
-    t = torch.as_tensor(time, dtype=torch.float32, device=xyz.device).reshape(-1, 1)
-    t = t.expand(n, 1)
-    tier = "float32"
-    if cfg.compute_dtype == "bfloat16":
-        tier = "bfloat16_bwd" if cfg.bf16_cotangents else "bfloat16"
-    return net(xyz, t, tier)
+    return net(xyz, _time_column(time, xyz), config_tier(cfg))
+
+
+def deform_se3(net: SE3Net, xyz: torch.Tensor, time, iteration: int,
+               cfg: DeformConfig = DeformConfig()) -> torch.Tensor:
+    """Positions moved by per-gaussian SE(3) transforms (deform.py:313-355):
+    theta = |w|, the screw [w, v] / max(theta, 1e-12) integrated by
+    ``exp_se3``, then ``from_homogenous(T @ to_homogenous(xyz))``.  While
+    iteration < warmup, ``xyz`` itself and the net is not run."""
+    if int(iteration) < cfg.warmup_iters:
+        return xyz
+    w, v = net(xyz, _time_column(time, xyz), config_tier(cfg))
+    theta = torch.linalg.vector_norm(w, dim=-1)
+    safe = torch.clamp(theta, min=1e-12)[..., None]
+    transform = rigid.exp_se3(torch.cat([w / safe, v / safe], dim=-1), theta)
+    moved = (transform * rigid.to_homogenous(xyz)[:, None, :]).sum(dim=-1)
+    return rigid.from_homogenous(moved)
+
+
+def opacity_mask_gate(latent: Dict[str, DeformMLP], xyz: torch.Tensor, time, iteration: int,
+                      cfg: DeformConfig = DeformConfig()) -> torch.Tensor:
+    """(N, 1) multiplicative opacity gate in [0, 1] (deform.py:373-398): the
+    sigmoid of the ``opacity_mask`` head on raw xyz and t, in fp32 whatever
+    ``cfg.compute_dtype`` is; ones while iteration < warmup."""
+    if int(iteration) < cfg.warmup_iters:
+        return xyz.new_ones((xyz.shape[0], 1))
+    (logit,) = latent["opacity_mask"](xyz, _time_column(time, xyz), "float32")
+    return torch.sigmoid(logit)
+
+
+def rebuild(net: Optional[DeformMLP], params: Dict[str, list], device) -> Optional[DeformMLP]:
+    """A net of ``net``'s class and config holding ``params`` (numpy) on ``device``."""
+    if net is None:
+        return None
+    out = type(net)(params, net.cfg, device=device)
+    return out.requires_grad_(net.layers[0].w.requires_grad)

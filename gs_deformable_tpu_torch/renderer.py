@@ -7,7 +7,7 @@ wrap it in ``torch.no_grad()`` (``training.make_eval_render``).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -36,9 +36,15 @@ class CameraArrays(NamedTuple):
         return cls(f32(world_view), f32(full_proj), f32(camera_center), f32(time))
 
 
-def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet],
-                        time, iteration: int, cfg: Config):
+def deformed_attributes(state: GaussianState, net: Optional[deform_mod.DeformMLP],
+                        time, iteration: int, cfg: Config,
+                        latent: Optional[Dict[str, deform_mod.DeformMLP]] = None):
     """Activated per-gaussian attributes after the deformation, plus the raw dx.
+
+    ``net`` is the ``OffsetNet`` under ``deform_mode="offset"``, the
+    ``SE3Net`` under "se3" (it moves the means only; dx is the move) and
+    None under "none".  With ``cfg.model.use_opacity_mask`` and the latent
+    heads given, ``sigmoid(opacity)`` is multiplied by their opacity gate.
 
     Dead capacity slots are routed to finite constants (means 1e6, scales
     1e-6, identity rotation, opacity 0, zero SH and offsets) by
@@ -62,6 +68,12 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet
         rotations = rot / torch.clamp(torch.linalg.vector_norm(rot, dim=-1, keepdim=True),
                                       min=1e-12)
         shs = state.get_features() + d_shs.reshape(n, cfg.deform.sh_coeffs, 3)
+    elif mode == "se3":
+        means3d = deform_mod.deform_se3(net, xyz, time, iteration, cfg.deform)
+        dx = means3d - xyz
+        scales = state.get_scaling()
+        rotations = state.get_rotation()
+        shs = state.get_features()
     elif mode == "none":
         means3d = xyz
         dx = torch.zeros_like(xyz)
@@ -72,6 +84,9 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet
         raise NotImplementedError(f"deform_mode {mode!r} (see config.check_supported)")
 
     opacity = state.get_opacity()
+    if cfg.model.use_opacity_mask and latent is not None:
+        opacity = opacity * deform_mod.opacity_mask_gate(latent, xyz, time, iteration,
+                                                         cfg.deform)
     a1 = state.alive[:, None]
     means3d = torch.where(a1, means3d, 1e6)
     scales = torch.where(a1, scales, 1e-6)
@@ -83,13 +98,16 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.OffsetNet
     return means3d, scales, rotations, opacity, shs, dx
 
 
-def render(state: GaussianState, net: Optional[deform_mod.OffsetNet], camera: CameraArrays,
+def render(state: GaussianState, net: Optional[deform_mod.DeformMLP], camera: CameraArrays,
            *, iteration: int, bg: torch.Tensor, width: int, height: int,
            tan_fovx: float, tan_fovy: float, active_sh_degree: int, cfg: Config,
            scale_modifier: float = 1.0,
            means2d_offset_ndc: Optional[torch.Tensor] = None,
+           latent: Optional[Dict[str, deform_mod.DeformMLP]] = None,
            device="cuda") -> tuple:
     """Render one frame; returns (RenderOut, dx offsets).  Differentiable.
+
+    ``net`` and ``latent`` as in ``deformed_attributes``.
 
     Every tensor must lie on ``device`` (default ``"cuda"``; a missing GPU
     raises).  Sets ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -103,7 +121,7 @@ def render(state: GaussianState, net: Optional[deform_mod.OffsetNet], camera: Ca
                     ("bg", bg)):
         device_rules.check_on(name, t, dev)
     means3d, scales, rotations, opacity, shs, dx = deformed_attributes(
-        state, net, camera.time, iteration, cfg)
+        state, net, camera.time, iteration, cfg, latent)
     colors_precomp = None
     cov3d_precomp = None
     if cfg.pipeline.convert_shs_python:

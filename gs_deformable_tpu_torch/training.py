@@ -4,8 +4,8 @@ densify/prune, the opacity reset, capacity growth and the eval renders.
 Port of ``gs_deformable_tpu/training.py`` (``TrainState``,
 ``init_train_state``, ``learning_rates``, ``make_train_step``,
 ``make_chunk_step``, ``make_densify_step``, ``make_opacity_reset``,
-``make_eval_render``, ``make_eval_render_batch``, ``stack_camera_arrays``,
-``run_eval_batches``, ``eval_sweep``, ``grow_capacity``).  One step runs deformation MLP -> activations ->
+``make_eval_render``, ``make_eval_render_batch``, ``run_eval_batches``,
+``eval_sweep``, ``grow_capacity``).  One step runs deformation MLP -> activations ->
 EWA preprocess -> SH -> tiled rasterize (CUDA composite forward) ->
 L1 + SSIM + offset-norm loss -> backward (CUDA composite backward, the
 gather's per-gaussian segment sum, autograd for the rest) ->
@@ -27,7 +27,15 @@ import torch
 
 from . import device as device_rules
 from .config import Config, check_supported, layout_unit
-from .models.deform import OffsetNet
+from .models.deform import (
+    DeformMLP,
+    OffsetNet,
+    SE3Net,
+    init_latent_params,
+    init_offset_params,
+    init_se3_params,
+    make_latent_heads,
+)
 from .models.gaussians import (
     PARAM_GROUPS,
     AdamState,
@@ -49,34 +57,56 @@ from .utils.losses import l1_loss, ssim
 @dataclasses.dataclass
 class TrainState:
     gaussians: GaussianState
-    net: Optional[OffsetNet]  # None for deform_mode="none"
+    # OffsetNet, or SE3Net under deform_mode="se3"; None for "none".  Its
+    # Adam group is "offset_model" either way, as in the JAX state.
+    net: Optional[DeformMLP]
     adam: AdamState
     # Draws the split children's offsets (make_densify_step); on the
     # gaussians' device.  The JAX state's PRNG key has no counterpart.
     generator: torch.Generator
+    # The four latent heads (models.deform.make_latent_heads): no gradient,
+    # no Adam group; the opacity gate reads "opacity_mask".
+    latent: Optional[Dict[str, DeformMLP]] = None
 
 
 def make_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _params(state: GaussianState, net: Optional[OffsetNet]) -> Dict:
+def _params(state: GaussianState, net: Optional[DeformMLP]) -> Dict:
     params = dict(state.params())
     if net is not None:
         params["offset_model"] = net.param_tree()
     return params
 
 
-def init_train_state(state: GaussianState, net: Optional[OffsetNet],
-                     seed: int = 0) -> TrainState:
-    """Zero Adam moments for the six groups and, with a net, ``"offset_model"``;
-    a generator seeded with ``seed`` on the state's device.
+def init_nets(cfg: Config, seed: int = 0, device="cuda"):
+    """(net, latent heads) for ``cfg.model.deform_mode`` from numpy inits
+    seeded by ``seed``: the ``SE3Net`` under "se3", the ``OffsetNet`` under
+    "offset", None under "none"; the four latent heads always
+    (training.py:54-62 of the JAX package, which draws them from its key)."""
+    dev = device_rules.resolve(device)
+    mode = cfg.model.deform_mode
+    net = None
+    if mode == "se3":
+        net = SE3Net(init_se3_params(seed, cfg.deform), cfg.deform, device=dev)
+    elif mode == "offset":
+        net = OffsetNet(init_offset_params(seed, cfg.deform), cfg.deform, device=dev)
+    return net, make_latent_heads(init_latent_params(seed + 1, cfg.deform), cfg.deform,
+                                  device=dev)
 
-    The JAX version draws the net from ``jax.random``; here it comes from
-    ``models.deform.init_offset_params(seed)`` or from ``convert``.
+
+def init_train_state(state: GaussianState, net: Optional[DeformMLP], seed: int = 0,
+                     latent: Optional[Dict[str, DeformMLP]] = None) -> TrainState:
+    """Zero Adam moments for the six groups and, with a net, ``"offset_model"``;
+    a generator seeded with ``seed`` on the state's device.  ``latent``
+    takes no moments.
+
+    The JAX version draws the nets from ``jax.random``; here they come from
+    ``init_nets`` (or ``models.deform``'s numpy inits) or from ``convert``.
     """
     return TrainState(state, net, adam_init(_params(state, net)),
-                      make_generator(seed, state.xyz.device))
+                      make_generator(seed, state.xyz.device), latent)
 
 
 def learning_rates(iteration, cfg: Config, spatial_lr_scale: float,
@@ -135,7 +165,7 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
         out, dx = render(g0.with_params(leaves), ts.net, cam, iteration=iteration, bg=bg,
                          width=width, height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
                          active_sh_degree=active_sh_degree, cfg=cfg,
-                         means2d_offset_ndc=screen_zero, device=dev)
+                         means2d_offset_ndc=screen_zero, latent=ts.latent, device=dev)
         img = out.image
         ll1 = l1_loss(img, gt_image)
         # dx is exactly 0 in dead slots and during warmup, where sqrt has an
@@ -192,7 +222,7 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
                     tan_fovy: float, active_sh_degree: int, spatial_lr_scale: float,
                     chunk_max: int = 10, device="cuda"):
     """Up to ``chunk_max`` train steps in one call (training.py:217-298 of the
-    JAX package): ``run(ts, cams, gts, bg, it0, n) -> (ts, metrics)``.
+    JAX package): ``run(ts, cams, gts, bg, it0, n, losses=None) -> (ts, metrics)``.
 
     ``cams`` holds each ``CameraArrays`` field stacked on a leading
     ``chunk_max`` axis, ``gts`` is ``(chunk_max, 3, H, W)``; step i of the
@@ -207,7 +237,8 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
     Kp is sized from ``config.layout_unit``, the alignment the binning uses.
     (The JAX function sizes it from ``cfg.raster.chunk`` even under
     ``composite_mode="packed"``, whose layout is aligned to ``sub_chunk``.)
-    ``ts`` is updated in place as ``make_train_step`` does.
+    ``ts`` is updated in place as ``make_train_step`` does.  A list given as
+    ``losses`` gets each step's loss appended, as a 0-d tensor on ``device``.
     """
     dev = device_rules.resolve(device)
     step = make_train_step(cfg, width=width, height=height, tan_fovx=tan_fovx,
@@ -219,7 +250,7 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
     last_keys = ("loss", "ll1", "ssim", "psnr", "offset_norm", "n_alive")
 
     def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
-            it0: int, n: int):
+            it0: int, n: int, losses: Optional[list] = None):
         if not 0 <= n <= chunk_max:
             raise ValueError(f"n must lie in [0, {chunk_max}], got {n}")
         if gts.shape[0] != chunk_max or cams.time.shape[0] != chunk_max:
@@ -232,6 +263,8 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
             cam = CameraArrays(*(x[i] for x in cams))
             ts, m = step(ts, cam, gts[i], bg, it0 + i)
             over = (m["required_instances"] > r.instance_capacity) | (m["required_aligned"] > kp)
+            if losses is not None:
+                losses.append(m["loss"])
             metrics.update({k: m[k] for k in last_keys})
             metrics["required_instances"] = torch.maximum(metrics["required_instances"],
                                                           m["required_instances"])
@@ -245,7 +278,8 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
 
 def make_eval_render(cfg: Config, *, width: int, height: int, tan_fovx: float,
                      tan_fovy: float, active_sh_degree: int, device="cuda"):
-    """No-grad render for eval sweeps: ``run(state, net, cam, bg, iteration) -> image``.
+    """No-grad render for eval sweeps:
+    ``run(state, net, cam, bg, iteration, latent=None) -> image``.
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU exists;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.  The
@@ -254,12 +288,14 @@ def make_eval_render(cfg: Config, *, width: int, height: int, tan_fovx: float,
     dev = device_rules.resolve(device)
     check_supported(cfg)
 
-    def run(state: GaussianState, net: Optional[OffsetNet], cam: CameraArrays,
-            bg: torch.Tensor, iteration: int) -> torch.Tensor:
+    def run(state: GaussianState, net: Optional[DeformMLP], cam: CameraArrays,
+            bg: torch.Tensor, iteration: int,
+            latent: Optional[Dict[str, DeformMLP]] = None) -> torch.Tensor:
         with torch.no_grad():
             out, _ = render(state, net, cam, iteration=iteration, bg=bg, width=width,
                             height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
-                            active_sh_degree=active_sh_degree, cfg=cfg, device=dev)
+                            active_sh_degree=active_sh_degree, cfg=cfg, latent=latent,
+                            device=dev)
         return out.image
 
     return run
@@ -314,38 +350,30 @@ def make_opacity_reset(cfg: Config):
 
 def make_eval_render_batch(cfg: Config, *, width: int, height: int, tan_fovx: float,
                            tan_fovy: float, active_sh_degree: int, device="cuda"):
-    """No-grad eval of a stack of cameras: ``run(ts, cams, gts, bg, iteration)
+    """No-grad eval of a list of cameras: ``run(ts, cams, gts, bg, iteration)
     -> (images, l1, psnr, ssim)``, each with a leading batch axis.
 
-    ``cams`` holds each ``CameraArrays`` field stacked on a leading axis
-    (``stack_camera_arrays``) and ``gts`` is (B, 3, H, W); images and
-    targets are clipped to [0, 1] before the metrics.  Nothing waits for
-    the card.
+    ``cams`` is a sequence of B ``CameraArrays`` and ``gts`` is
+    (B, 3, H, W); images and targets are clipped to [0, 1] before the
+    metrics.  Nothing waits for the card.
     """
     render_one = make_eval_render(cfg, width=width, height=height, tan_fovx=tan_fovx,
                                   tan_fovy=tan_fovy, active_sh_degree=active_sh_degree,
                                   device=device)
 
-    def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
-            iteration: int):
+    def run(ts: TrainState, cams: Sequence[CameraArrays], gts: torch.Tensor,
+            bg: torch.Tensor, iteration: int):
         out = []
         with torch.no_grad():
-            for i in range(gts.shape[0]):
-                img = torch.clamp(render_one(ts.gaussians, ts.net,
-                                             CameraArrays(*(x[i] for x in cams)), bg, iteration),
-                                  0.0, 1.0)
-                gt = torch.clamp(gts[i], 0.0, 1.0)
+            for cam, gt in zip(cams, gts, strict=True):
+                img = torch.clamp(render_one(ts.gaussians, ts.net, cam, bg, iteration,
+                                             ts.latent), 0.0, 1.0)
+                gt = torch.clamp(gt, 0.0, 1.0)
                 out.append((img, (img - gt).abs().mean(), psnr(img[None], gt[None]).mean(),
                             ssim(img, gt)))
         return tuple(torch.stack(x) for x in zip(*out))
 
     return run
-
-
-def stack_camera_arrays(cam_list: Sequence[CameraArrays]) -> CameraArrays:
-    """Per-camera ``CameraArrays`` stacked on a leading batch axis."""
-    return CameraArrays(*(torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in xs])
-                          for xs in zip(*cam_list)))
 
 
 def run_eval_batches(eval_batch_fn, ts: TrainState, cam_arr_list: Sequence[CameraArrays],
@@ -363,8 +391,7 @@ def run_eval_batches(eval_batch_fn, ts: TrainState, cam_arr_list: Sequence[Camer
     for s in range(0, len(cam_arr_list), batch):
         gts = torch.stack([torch.as_tensor(g, dtype=torch.float32, device=dev)
                            for g in gt_list[s:s + batch]])
-        imgs, l1, ps, ss = eval_batch_fn(ts, stack_camera_arrays(cam_arr_list[s:s + batch]),
-                                         gts, bg, iteration)
+        imgs, l1, ps, ss = eval_batch_fn(ts, cam_arr_list[s:s + batch], gts, bg, iteration)
         imgs = imgs.cpu().numpy()
         for j, (a, b, c) in enumerate(zip(l1.tolist(), ps.tolist(), ss.tolist())):
             out.append((imgs[j], a, b, c))
@@ -397,7 +424,8 @@ def eval_sweep(make_batch_fn: Callable, ts: TrainState, cams: Sequence, cam_to_a
 def grow_capacity(ts: TrainState, new_capacity: int) -> TrainState:
     """Every per-gaussian tensor and the six groups' moments padded to
     ``new_capacity`` rows: dead, identity rotations, zeros elsewhere.  The
-    net, its moments, the step count and the generator carry over."""
+    nets (latent heads included), the net's moments, the step count and the
+    generator carry over."""
     g = ts.gaussians
     old = g.capacity
     if new_capacity <= old:

@@ -1,9 +1,11 @@
-"""Learning-rate schedule, inverse activation and image metrics
-(port of ``gs_deformable_tpu/utils/general.py``)."""
+"""Learning-rate schedule, inverse activation, image metrics and the
+CLIs' console (port of ``gs_deformable_tpu/utils/general.py``)."""
 
 from __future__ import annotations
 
 import math
+import sys
+from datetime import datetime
 
 import torch
 
@@ -37,3 +39,28 @@ def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return 20 * torch.log10(1.0 / torch.sqrt(mse(img1, img2)))
+
+
+def safe_state(silent: bool = False) -> None:
+    """Console timestamps for a command-line run (general_utils.py:112-133
+    of the reference).
+
+    Wraps ``sys.stdout`` so each finished line ends in "[dd/mm HH:MM:SS]",
+    or prints nothing when ``silent``.  Seeds nothing: each CLI makes its
+    own seeded generators, and no global random state is touched.
+    """
+    old = sys.stdout
+
+    class _Stamped:
+        def write(self, x):
+            if silent:
+                return
+            if x.endswith("\n"):
+                stamp = datetime.now().strftime("%d/%m %H:%M:%S")
+                x = x.replace("\n", f" [{stamp}]\n")
+            old.write(x)
+
+        def flush(self):
+            old.flush()
+
+    sys.stdout = _Stamped()

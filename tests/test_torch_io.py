@@ -144,7 +144,8 @@ def test_model_ply_and_nets(direction, tmp_path):
                                       getattr(np_ts.gaussians, f)[alive], err_msg=f)
 
     net_path = os.path.join(src, "offset_model.npz")
-    mine = model_ply.load_net(net_path, configs(config).deform, device="cpu")
+    mine = model_ply.load_net(net_path, configs(config).deform, device="cpu",
+                              kind=OffsetNet)
     theirs = jmodel_ply.load_net(net_path, np_ts.deform)
     for x, y, z in zip(jax.tree_util.tree_leaves(mine.numpy_params()),
                        jax.tree_util.tree_leaves(theirs),

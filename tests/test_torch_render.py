@@ -147,7 +147,7 @@ def test_jax_saved_model_loads_in_port(tmp_path):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
     net = model_ply.load_net(os.path.join(str(tmp_path), "offset_model.npz"), cfg.deform,
-                             device="cpu")
+                             device="cpu", kind=OffsetNet)
     back = net.numpy_params()
     for group in ("layers", "heads"):
         for a, b in zip(back[group], params[group], strict=True):
@@ -195,11 +195,18 @@ def test_no_quiet_cpu_fallback(monkeypatch):
 
 
 def test_unported_knobs_raise():
-    for over in (dict(model=config.ModelConfig(deform_mode="se3")),
-                 dict(model=config.ModelConfig(use_opacity_mask=True))):
-        with pytest.raises(NotImplementedError):
+    for over in (dict(parallel=config.ParallelConfig(data_axis=2)),
+                 dict(parallel=config.ParallelConfig(model_axis=2))):
+        with pytest.raises(NotImplementedError, match="mesh"):
             config.check_supported(config.Config(**over))
     config.check_supported(config.Config())
+    # The deformation variants are ported.
+    for model in (config.ModelConfig(deform_mode="se3"),
+                  config.ModelConfig(use_opacity_mask=True),
+                  config.ModelConfig(deform_mode="se3", use_opacity_mask=True)):
+        config.check_supported(config.Config(model=model))
+    with pytest.raises(ValueError):
+        config.check_supported(config.Config(model=config.ModelConfig(deform_mode="x")))
     # The packed knobs are ported: the same two kernels, a sub_chunk-aligned
     # layout and the truncated-depth sort.
     for raster in (config.RasterizeConfig(composite_mode="packed"),
