@@ -155,6 +155,44 @@ Phases (any failure raises and the script exits non-zero):
    torch.profiler trace that the trainer's ``--profile_dir`` writes of one
    step past warmup (``se3_share_of_step``).
 
+13. the native COLMAP reader: a binary COLMAP model at a Mip-NeRF 360
+   scene's size (200 images of 5,000 observations, 180,000 points3D with
+   2-9-entry tracks, ~41 MB) written to a temporary directory; the port's
+   library built (host compiler) and asserted available; the three binary
+   readers of ``data.colmap`` must call it (no Python fallback accepted),
+   and their results must equal the Python parser's bit for bit in every
+   field both return (the native images reader returns no 2D tracks).
+   Prints both parsers' read times.
+14. the mesh on phase 11's scene (its 100k-point cloud at capacity 262,144,
+   10 of its train views; the fp32 MLP tier, instance capacity 2^22,
+   iterations 3001-3010, past the warmup so the net trains): (a) a 1x1
+   mesh with a world of one NCCL rank (an all_reduce checks NCCL; a group
+   of one rank makes no collective call), 10 sharded steps against 10
+   ``training.make_train_step`` steps: step 1 at the train-step bars (loss
+   rtol 1e-5, every gradient rtol 1e-3 / atol 5e-5 x scale), the 10
+   losses within 1e-3; (b) two processes on the one card over gloo
+   (``chip_smoke.py --mesh-child``; NCCL refuses two ranks on one card):
+   the 2x1 decomposition's first step (saved for (c)), then a 1x2 mesh for
+   10 steps, a sharded densify and an opacity reset, its first step held
+   against the single-device step on the same interleaved state; (c) four
+   processes, a 2x2 mesh, the same, its first step held against (b)'s 2x1
+   step (run on the interleaved rows, so that only the bands differ). Both
+   at the train-step bars, no element off. In every rank:
+   the launches of its 10 steps (each kernel as a step launches it), its
+   band frame of step 1 recorded inside the run (``recorded_frames``) held
+   against the plain versions (fills and forward bitwise, backward at the
+   phase-7 bars), the nets bitwise equal on every rank, the metrics equal,
+   the data replicas' slices equal; ms/step of the 10 steps; the
+   collectives' share of a step from 3 further steps in which each
+   collective is timed alone, the card synchronised around it
+   (``timed_collectives``); which collectives gloo takes with CUDA tensors
+   as they are. (d) ``train.main --n_model 2`` under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 2`` (``--cli-child``)
+   on the scene directory, 60 iterations, warmup 30, a densify at 50, a
+   checkpoint and a save at 60: one output directory (rank 0 alone
+   writes), the layout of the same run on one rank (run after it), the
+   mean loss of iterations 16-30 under that of 1-15; ms/step of both.
+
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
 PERF.md section 5).
@@ -227,6 +265,15 @@ KNN_ROWS = 4096  # k-NN rows checked against the CPU
 # gate, past a warmup short enough that the nets run in most steps and up
 # to the first densification (600) and 20 steps beyond.
 CLI_ITERS, CLI_WARMUP = 620, 300
+# Phase 13: a binary COLMAP model at a Mip-NeRF 360 scene's size (~200
+# images of ~5,000 observations, 150k-200k points3D).
+COLMAP_IMAGES, COLMAP_OBS, COLMAP_POINTS = 200, 5000, 180_000
+# Phase 14: the mesh on phase 11's scene, past the deformation warmup so the
+# net trains (its gradients are summed over the model group); the CLI run
+# cut to 60 iterations with warmup 30, a densify at 50 and a checkpoint.
+MESH_VIEWS, MESH_STEPS, MESH_ITER0, MESH_ICAP = 10, 10, 3001, 1 << 22
+MESH_CLOCK_STEPS = 3  # further steps of (b)/(c) with the collectives timed alone
+CLI_MESH_ITERS, CLI_MESH_WARMUP = 60, 30
 
 
 def log(*a):
@@ -2104,6 +2151,684 @@ def cli_phase(torch, timer, root):
             "kernel_checks": {"train_step": step_check, "render_view": view_check}}
 
 
+# -- phase 13: the native COLMAP reader ---------------------------------------
+
+
+def write_colmap_model(root, rng):
+    """A binary COLMAP model at a Mip-NeRF 360 scene's size: COLMAP_IMAGES
+    images of COLMAP_OBS 2D points each, COLMAP_POINTS points3D with tracks
+    of 2-9 entries (about as many as the observations), one PINHOLE and one
+    OPENCV camera (tests/test_colmap.py's wire format)."""
+    import struct
+
+    lens = rng.integers(2, 10, COLMAP_POINTS)  # ~5.5 a point: ~1M, the observations' count
+    with open(os.path.join(root, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 2))
+        f.write(struct.pack("<iiQQ", 1, 1, 4946, 3286) + struct.pack("<4d", 3500.0, 3500.0,
+                                                                       2473.0, 1643.0))
+        f.write(struct.pack("<iiQQ", 2, 4, 1237, 822)
+                + struct.pack("<8d", *rng.uniform(-1, 1, 8)))
+    obs = np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")])
+    with open(os.path.join(root, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", COLMAP_IMAGES))
+        for i in range(COLMAP_IMAGES):
+            q = rng.normal(size=4)
+            q /= np.linalg.norm(q)
+            f.write(struct.pack("<idddddddi", i + 1, *q, *rng.normal(size=3), 1 + i % 2))
+            f.write(f"DSCF{5000 + i:04d}.JPG".encode() + b"\x00")
+            rec = np.empty(COLMAP_OBS, obs)
+            rec["x"] = rng.uniform(0, 4946, COLMAP_OBS)
+            rec["y"] = rng.uniform(0, 3286, COLMAP_OBS)
+            rec["id"] = np.where(rng.random(COLMAP_OBS) < 0.8,
+                                 rng.integers(1, COLMAP_POINTS + 1, COLMAP_OBS), -1)
+            f.write(struct.pack("<Q", COLMAP_OBS) + rec.tobytes())
+    xyz = rng.normal(size=(COLMAP_POINTS, 3)) * 3.0
+    rgb = rng.integers(0, 256, (COLMAP_POINTS, 3))
+    err = rng.uniform(0, 2, COLMAP_POINTS)
+    track = rng.integers(0, 2**31 - 1, (int(lens.sum()), 2), dtype=np.int64).astype("<i4")
+    parts, at = [struct.pack("<Q", COLMAP_POINTS)], 0
+    head = struct.Struct("<QdddBBBdQ")
+    for i in range(COLMAP_POINTS):
+        n = int(lens[i])
+        parts.append(head.pack(i + 1, *xyz[i], *rgb[i], err[i], n))
+        parts.append(track[at:at + n].tobytes())
+        at += n
+    with open(os.path.join(root, "points3D.bin"), "wb") as f:
+        f.write(b"".join(parts))
+    return int(lens.sum())
+
+
+def colmap_phase(torch, root):
+    """Phase 13: the port's native reader built here and read through
+    ``data.colmap`` (no Python fallback accepted), against the Python
+    parser on the same files: equal bit for bit in every field both return."""
+    from gs_deformable_tpu_torch import _build
+    from gs_deformable_tpu_torch.data import colmap
+    from gs_deformable_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    track_len = write_colmap_model(root, np.random.default_rng(13))
+    write_s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(root, f))
+             for f in ("cameras.bin", "images.bin", "points3D.bin")}
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native COLMAP reader did not build")
+    build_s = time.perf_counter() - t0
+    paths = {k: os.path.join(root, f) for k, f in (("points", "points3D.bin"),
+                                                    ("cameras", "cameras.bin"),
+                                                    ("images", "images.bin"))}
+    for fn, path in ((native.read_points3d_bin, paths["points"]),
+                     (native.read_cameras_bin, paths["cameras"]),
+                     (native.read_images_bin, paths["images"])):
+        if fn(path) is None:
+            raise AssertionError(f"the native reader refused {path}")
+
+    def read_all():
+        out, ms = {}, {}
+        for key, fn in (("points", colmap.read_points3d_binary),
+                        ("cameras", colmap.read_intrinsics_binary),
+                        ("images", colmap.read_extrinsics_binary)):
+            t = time.perf_counter()
+            out[key] = fn(paths[key])
+            ms[key] = (time.perf_counter() - t) * 1e3
+        return out, ms
+
+    calls = []
+    saved = {n: getattr(native, n) for n in ("read_points3d_bin", "read_cameras_bin",
+                                             "read_images_bin")}
+    for n, fn in saved.items():
+        setattr(native, n, lambda p, fn=fn, n=n: calls.append(n) or fn(p))
+    try:
+        nat, nat_ms = read_all()
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+    if sorted(calls) != sorted(saved):
+        raise AssertionError(f"the binary readers called the native reader for {calls}")
+    available = native.available
+    native.available = lambda: False
+    try:
+        py, py_ms = read_all()
+    finally:
+        native.available = available
+    for a, b in zip(nat["points"], py["points"], strict=True):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("points3D: native and Python readers differ")
+    if list(nat["cameras"]) != list(py["cameras"]) or any(
+            (a.model, a.width, a.height) != (b.model, b.width, b.height)
+            or not np.array_equal(a.params, b.params)
+            for a, b in zip(nat["cameras"].values(), py["cameras"].values())):
+        raise AssertionError("cameras: native and Python readers differ")
+    if list(nat["images"]) != list(py["images"]):
+        raise AssertionError("images: native and Python readers list other ids")
+    for a, b in zip(nat["images"].values(), py["images"].values()):
+        if ((a.camera_id, a.name) != (b.camera_id, b.name) or not np.array_equal(a.qvec, b.qvec)
+                or not np.array_equal(a.tvec, b.tvec) or a.xys.shape != (0, 2)
+                or b.xys.shape != (COLMAP_OBS, 2)):
+            raise AssertionError(f"image {a.id}: native and Python readers differ")
+    rec = {"images": COLMAP_IMAGES, "observations_per_image": COLMAP_OBS,
+           "points3d": COLMAP_POINTS, "track_entries": track_len, "bytes": sizes,
+           "write_s": write_s, "build_or_load_s": build_s,
+           "library": os.path.basename(_build._target("colmap_io")),
+           "native_ms": nat_ms, "python_ms": py_ms, "bitwise_equal": True}
+    log(f"  wrote {COLMAP_IMAGES} images x {COLMAP_OBS} observations, {COLMAP_POINTS} points3D "
+        f"({track_len} track entries; {sum(sizes.values()) / 1e6:.1f} MB) in {write_s:.1f} s; "
+        f"native library ready in {build_s:.2f} s ({rec['library']})")
+    log("  read ms, native / Python: " + "; ".join(
+        f"{k} {nat_ms[k]:.1f} / {py_ms[k]:.1f}" for k in nat_ms)
+        + "  (equal bit for bit; the native images reader skips the 2D tracks)")
+    return rec
+
+
+# -- phase 14: the mesh ---------------------------------------------------------
+
+
+def mesh_cfg(config):
+    """Phase 11's configuration with the fp32 MLP tier (the bf16 tier trips
+    the train-step bars through Adam's first rsqrt, tests/test_sharding.py:
+    25-33) and instance capacity 2^22: past the warmup the untrained net
+    needs ~2.3M instances a frame (PERF.md §6)."""
+    return config.Config(deform=config.DeformConfig(compute_dtype="float32"),
+                         raster=config.RasterizeConfig(instance_capacity=MESH_ICAP))
+
+
+def mesh_inputs(torch, src, work):
+    """Phase 11's scene for the mesh runs: the initial state (its cloud at
+    capacity 262,144) and MESH_VIEWS train views, saved once under ``work``."""
+    import random
+
+    from gs_deformable_tpu_torch.data.scene import Scene
+    from gs_deformable_tpu_torch.models.gaussians import init_from_points
+
+    sc = Scene(src, "", eval=True, rng=np.random.RandomState(0), shuffle_rng=random.Random(0))
+    pcd = sc.scene_info.point_cloud
+    cap = 1 << (2 * len(pcd.points) - 1).bit_length()
+    state = init_from_points(pcd.points, pcd.colors, cap, 3)
+    cams = sc.get_train_cameras()[:MESH_VIEWS]
+    arrays = {f"g_{f.name}": getattr(state, f.name).cpu().numpy()
+              for f in dataclasses.fields(state)}
+    for name in ("world_view", "full_proj", "camera_center", "time"):
+        arrays[f"cam_{name}"] = np.stack([np.asarray(getattr(c, name), np.float32)
+                                          for c in cams])
+    arrays["gts"] = np.stack([c.image for c in cams]).astype(np.float32)
+    c0 = cams[0]
+    arrays["frame"] = np.asarray([c0.width, c0.height, c0.tan_fovx, c0.tan_fovy], np.float64)
+    np.savez(os.path.join(work, "inputs.npz"), **arrays)
+    return cap
+
+
+def mesh_load(torch, work, cfg, device="cuda"):
+    """(TrainState, cameras, gts, step keywords) from ``mesh_inputs``."""
+    from gs_deformable_tpu_torch import training
+    from gs_deformable_tpu_torch.models.gaussians import GaussianState
+    from gs_deformable_tpu_torch.renderer import CameraArrays
+
+    with np.load(os.path.join(work, "inputs.npz")) as f:
+        arrays = {k: f[k] for k in f.files}
+    state = GaussianState(**{k[2:]: torch.from_numpy(v).to(device)
+                             for k, v in arrays.items() if k.startswith("g_")})
+    net, latent = training.init_nets(cfg, 0, device)
+    ts = training.init_train_state(state, net, 0, latent)
+    cams = [CameraArrays(*(torch.as_tensor(np.asarray(arrays[f"cam_{n}"][i]), device=device)
+                           for n in ("world_view", "full_proj", "camera_center", "time")))
+            for i in range(MESH_VIEWS)]
+    gts = torch.from_numpy(arrays["gts"]).to(device)
+    w, h, tx, ty = arrays["frame"]
+    kw = dict(width=int(w), height=int(h), tan_fovx=float(tx), tan_fovy=float(ty),
+              active_sh_degree=3, spatial_lr_scale=1.0)
+    return ts, cams, gts, kw
+
+
+def mu_cpu(ts):
+    return [(k, t.detach().cpu()) for k, t in mu_leaves(ts)]
+
+
+def hold_step(torch, got_loss, got_mu, ref_loss, ref_mu, what):
+    """One step against a reference in the same row order at the train-step
+    bars: loss rtol 1e-5, every gradient (Adam's first moment) rtol 1e-3 /
+    atol 5e-5 x its leaf's scale, no element off the bar."""
+    groups, bitwise = grads_vs(torch, got_mu, ref_mu)
+    sizes = {}
+    for k, t in ref_mu:
+        sizes[k] = sizes.get(k, 0) + t.numel()
+    loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    log(f"  {what}: loss {got_loss:.8f} vs {ref_loss:.8f} (rel {loss_rel:.3g}); gradients "
+        "off the bar / elements / max error over the leaf's scale: " + ", ".join(
+            f"{k} {off} / {sizes[k]} / {w:.3g}" for k, (off, w) in groups.items())
+        + f"; bitwise equal: {bitwise}")
+    for k, (off, w) in groups.items():
+        if off:
+            raise AssertionError(f"{what}: group {k} has {off} of {sizes[k]} gradients off "
+                                 f"the bar, max error {w:.3g} of its leaf's scale")
+    if loss_rel > 1e-5:
+        raise AssertionError(f"{what}: loss off by {loss_rel:.3g}")
+    return {"loss": got_loss, "ref_loss": ref_loss, "loss_rel": loss_rel, "bitwise": bitwise,
+            "groups": {k: {"off_bar": off, "elements": sizes[k], "max_err_over_scale": w}
+                       for k, (off, w) in groups.items()}}
+
+
+def band_frame_check(torch, rec, frame, counts, cfg, label):
+    """A band frame that ``recorded_frames`` kept inside a sharded run: each
+    ordered fill and the composite forward bitwise against their plain
+    versions, the backward on its recorded forward output and upstream
+    gradient at the phase-7 bars (rtol 5e-4 / atol 2e-5 x the row's scale)."""
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp
+    from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
+
+    if rec["calls"] != counts:
+        raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
+    f = rec["frames"][frame]
+    if f["composite_forward"] is None or f["composite_backward"] is None or len(f["fills"]) != 3:
+        raise AssertionError(f"{label}: the frame was not recorded whole")
+    for name, pos, x, k in f["fills"]:
+        got = (of.ordered_prefix_fill(pos, x, k) if name == "ordered_prefix_fill"
+               else of.ordered_place_i32(pos, x, k))
+        ref = (of.prefix_fill_plain(pos, x, k) if name == "ordered_prefix_fill"
+               else of.place_plain(pos, x, k))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: {name} differs from its plain version")
+    (splats_t, start, count), kw = f["composite_forward"]
+    if kw != dict(grid_x=kw["grid_x"], **composite_kw(cfg)):
+        raise AssertionError(f"{label}: the composite ran with {kw}")
+    out = comp.composite_forward(splats_t, start, count, **kw)
+    if not torch.equal(out, comp.composite_forward_plain(splats_t, start, count, **kw)):
+        raise AssertionError(f"{label}: composite_forward differs from its plain version")
+    (*tables, fwd_out, grad), bkw = f["composite_backward"]
+    if not torch.equal(fwd_out, out) or bkw != kw:
+        raise AssertionError(f"{label}: the backward's inputs are not the forward's")
+    got = comp.composite_backward(*tables, fwd_out, grad, **bkw)
+    ref = comp.composite_backward_plain(*tables, fwd_out, grad, **bkw)
+    assert_rows_close(torch, got[:GRAD_FIELDS], ref[:GRAD_FIELDS], f"{label} backward")
+    err = float((got - ref).abs().max())
+    rel = max(float((got[r] - ref[r]).abs().max() / (ref[r].abs().max() + 1e-30))
+              for r in range(GRAD_FIELDS))
+    return {"label": label, "tiles": int(count.shape[0]), "Kp": int(splats_t.shape[1]),
+            "instances": int(count.sum()), "fills": [(n, int(p.shape[0]), int(k))
+                                                     for n, p, _, k in f["fills"]],
+            "forward_bitwise": True, "backward_max_abs_err": err,
+            "backward_max_err_over_row_scale": rel}
+
+
+def digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_run(torch, mesh, cfg, ts, cams, gts, kw, label, views_of):
+    """MESH_STEPS sharded steps (step k: data row d takes view ``views_of(k, d)``),
+    a sharded densify and an opacity reset, on the recorder (frame 0 kept).
+    Returns (record, the step-1 gathered state's loss and mu)."""
+    from gs_deformable_tpu_torch.models.gaussians import tree_leaves
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from gs_deformable_tpu_torch.parallel import sharding
+
+    ts = sharding.shard_train_state(ts, mesh)
+    step = sharding.make_sharded_train_step(cfg, mesh, **kw)
+    bg = torch.zeros(3, device="cuda")
+    losses, ms, first = [], [], None
+    reset_launch_counts()
+    with recorded_frames(torch, (0,)) as rec:
+        for k in range(MESH_STEPS):
+            v = views_of(k, mesh.data_index)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = step(ts, cams[v], gts[v], bg, MESH_ITER0 + k)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if k == 0:
+                full = sharding.gather_train_state(ts, mesh)
+                first = (losses[0], mu_cpu(full))
+                del full
+                if int(m["required_instances"]) > cfg.raster.instance_capacity:
+                    raise AssertionError(f"{label}: instance overflow")
+    counts = launch_counts()
+    want = {kk: v * MESH_STEPS for kk, v in STEP_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    # The collectives' share, from further steps whose collectives are timed
+    # alone (the card synchronised around each), so that ms/step above is
+    # the trainer's own.
+    clock_ms, coll_ms = [], []
+    for k in range(MESH_STEPS, MESH_STEPS + MESH_CLOCK_STEPS):
+        v = views_of(k, mesh.data_index)
+        with timed_collectives(torch) as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = step(ts, cams[v], gts[v], bg, MESH_ITER0 + k)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            clock_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(clock["s"] * 1e3)
+    band = band_frame_check(torch, rec, 0, counts, cfg,
+                            f"{label} band {mesh.model_index} of row {mesh.data_index}")
+    dens = sharding.make_sharded_densify_step(cfg, mesh, extent=4.0, use_screen_prune=False)
+    ts, info = dens(ts, cfg.opt.densify_grad_threshold, cfg.opt.min_opacity)
+    ts = sharding.make_sharded_opacity_reset(cfg, mesh)(ts)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: loss not finite: {losses}")
+    net = digest(tree_leaves(ts.net.param_tree()))
+    local = digest([getattr(ts.gaussians, f.name) for f in dataclasses.fields(ts.gaussians)]
+                   + [t for _, t in mu_leaves(ts)])
+    rec_out = {"label": label, "rank": mesh.rank, "losses": losses, "ms": ms,
+               "ms_per_step": float(np.median(ms[1:])), "clocked_ms": clock_ms,
+               "collective_ms": coll_ms, "collective_calls": clock["calls"],
+               "collective_share": float(np.sum(coll_ms) / np.sum(clock_ms)),
+               "launches": counts, "band_frame": band,
+               "densify": {kk: int(v) for kk, v in info.items()},
+               "net_digest": net, "slice_digest": local,
+               "required_instances": int(m["required_instances"]),
+               "required_aligned": int(m["required_aligned"])}
+    return rec_out, first
+
+
+@contextlib.contextmanager
+def timed_collectives(torch):
+    """Within it, ``torch.distributed``'s ``all_reduce`` and ``all_gather``
+    (all the sharded step calls) synchronise the card before and after each
+    call and add its host seconds to ``clock["s"]`` and one to
+    ``clock["calls"]``: the collective's own time, gloo's host copies
+    included."""
+    import torch.distributed as dist
+
+    clock = {"s": 0.0, "calls": 0}
+    saved = dist.all_reduce, dist.all_gather
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            clock["s"] += time.perf_counter() - t0
+            clock["calls"] += 1
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather = timed(saved[0]), timed(saved[1])
+    try:
+        yield clock
+    finally:
+        dist.all_reduce, dist.all_gather = saved
+
+
+def gloo_cuda_probe(torch, dist):
+    """Which collectives gloo takes with CUDA tensors as they are (the port's
+    collectives hand it CUDA tensors as they are)."""
+    import datetime
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=60))
+    n = dist.get_world_size()
+    x = torch.ones(8, device="cuda")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x,
+                                              group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * n, device="cuda"), x, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8, device="cuda"), torch.ones(8 * n, device="cuda"), group=group),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "taken"
+        except Exception as e:  # a refusal is what the probe records
+            out[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def mesh_child(argv):
+    """One rank of phase 14 (b) or (c): ``chip_smoke.py --mesh-child <work>
+    <rank> <world>``.  World 2: the 2x1 decomposition's first step (saved
+    for (c)), then the 1x2 run held against the single-device step; world
+    4: the 2x2 run held against the saved 2x1 step."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from gs_deformable_tpu_torch import config, device, training
+    from gs_deformable_tpu_torch.parallel import sharding
+
+    work, rank, world = argv[0], int(argv[1]), int(argv[2])
+    torch.cuda.set_device(0)
+    device.pin_fp32()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, f'store{world}')}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = mesh_cfg(config)
+    out = {}
+    if world == 2:
+        m21 = sharding.make_mesh(2, 1)
+        ts, cams, gts, kw = mesh_load(torch, work, cfg)
+        # In (c)'s row order, so that only the bands differ.
+        ts = sharding.permute_gaussian_rows(ts, sharding.interleave_perm(
+            ts.gaussians.capacity, 2))
+        step = sharding.make_sharded_train_step(cfg, m21, **kw)
+        d = m21.data_index
+        ts, m = step(ts, cams[d], gts[d], torch.zeros(3, device="cuda"), MESH_ITER0)
+        if rank == 0:
+            torch.save({"loss": float(m["loss"]), "mu": mu_cpu(ts)},
+                       os.path.join(work, "step_2x1.pt"))
+        del ts, step
+        ts, cams, gts, kw = mesh_load(torch, work, cfg)
+        if rank == 0:  # the single-device step on the same interleaved state
+            ref = sharding.permute_gaussian_rows(ts, sharding.interleave_perm(
+                ts.gaussians.capacity, 2))
+            single = training.make_train_step(cfg, **kw)
+            ref, m = single(ref, cams[0], gts[0], torch.zeros(3, device="cuda"), MESH_ITER0)
+            ref_first = (float(m["loss"]), mu_cpu(ref))
+            del ref, single
+            ts, *_ = mesh_load(torch, work, cfg)
+        mesh = sharding.make_mesh(1, 2)
+        rec, first = sharded_run(torch, mesh, cfg, ts, cams, gts, kw, "1x2",
+                                 lambda k, d: k % MESH_VIEWS)
+        if rank == 0:
+            rec["vs_single_device"] = hold_step(torch, *first, *ref_first,
+                                                "(b) 1x2 step 1 vs the single-device step")
+        out["probe"] = gloo_cuda_probe(torch, dist)
+    else:
+        mesh = sharding.make_mesh(2, 2)
+        ts, cams, gts, kw = mesh_load(torch, work, cfg)
+        rec, first = sharded_run(torch, mesh, cfg, ts, cams, gts, kw, "2x2",
+                                 lambda k, d: (2 * k + d) % MESH_VIEWS)
+        if rank == 0:
+            ref = torch.load(os.path.join(work, "step_2x1.pt"))
+            rec["vs_2x1"] = hold_step(torch, *first, ref["loss"], ref["mu"],
+                                      "(c) 2x2 step 1 vs the 2x1 decomposition's step 1")
+    digests = [None] * world
+    dist.all_gather_object(digests, (rec["net_digest"], rec["slice_digest"],
+                                     rec["losses"], mesh.model_index))
+    if len({d[0] for d in digests}) != 1:
+        raise AssertionError("the net's parameters differ between ranks")
+    if len({tuple(d[2]) for d in digests}) != 1:
+        raise AssertionError("the metrics differ between ranks")
+    for mi in range(mesh.n_model):
+        if len({d[1] for d in digests if d[3] == mi}) != 1:
+            raise AssertionError(f"data replicas of slice {mi} differ")
+    out.update(rec)
+    with open(os.path.join(work, f"rank{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def cli_child(argv):
+    """Phase 14 (d)'s rank under torch.distributed.run: ``train.main(argv)``
+    with a timeline, which rank 0 writes to ``argv[0]``."""
+    from gs_deformable_tpu_torch import train as train_cli
+
+    timeline = []
+    train_cli.main(argv[1:], timeline)
+    if os.environ.get("RANK", "0") == "0":
+        with open(argv[0], "w") as f:
+            json.dump(timeline, f)
+    return 0
+
+
+def spawn_ranks(args_of, n, logs, env=None, timeout=600):
+    """Start ``n`` processes (output to ``logs/rank<r>.log``) and wait for all;
+    the first that fails stops the others and raises with its output."""
+    files = [open(os.path.join(logs, f"rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_of(r)],
+                              env=dict(os.environ, **(env or {})), stdout=f,
+                              stderr=subprocess.STDOUT) for r, f in enumerate(files)]
+    failed, start = None, time.time()
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if time.time() - start > timeout:
+                failed = "timeout"
+            time.sleep(0.2)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    if failed is not None:
+        r = 0 if failed == "timeout" else failed
+        with open(os.path.join(logs, f"rank{r}.log")) as f:
+            raise AssertionError(f"rank {r} failed ({failed}):\n{f.read()[-6000:]}")
+
+
+def file_layout(root):
+    out = []
+    for d, _, files in os.walk(root):
+        out += [os.path.relpath(os.path.join(d, f), root) for f in files
+                if not f.startswith("events.out.tfevents")]
+    return sorted(out)
+
+
+def mesh_phase(torch, root):
+    """Phase 14: the mesh on phase 11's scene (under ``root``)."""
+    import torch.distributed as dist
+
+    from gs_deformable_tpu_torch import config, training
+    from gs_deformable_tpu_torch.parallel import sharding
+
+    src = os.path.join(root, "scene")
+    work = os.path.join(root, "mesh")
+    os.makedirs(work)
+    cfg = mesh_cfg(config)
+    t0 = time.perf_counter()
+    cap = mesh_inputs(torch, src, work)
+    log(f"  inputs: phase 11's cloud at capacity {cap}, {MESH_VIEWS} train views "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec = {"capacity": cap, "iterations": [MESH_ITER0, MESH_ITER0 + MESH_STEPS - 1],
+           "instance_capacity": MESH_ICAP}
+
+    # (a) world size 1 over NCCL.
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(work, 'store1')}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        backend = dist.get_backend()
+        mesh = sharding.make_mesh(1, 1)
+        runs = {}
+        for name in ("sharded", "single"):
+            ts, cams, gts, kw = mesh_load(torch, work, cfg)
+            step = (sharding.make_sharded_train_step(cfg, mesh, **kw) if name == "sharded"
+                    else training.make_train_step(cfg, **kw))
+            losses, ms = [], []
+            for k in range(MESH_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ts, m = step(ts, cams[k % MESH_VIEWS], gts[k % MESH_VIEWS],
+                             torch.zeros(3, device="cuda"), MESH_ITER0 + k)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if k == 0:
+                    first = (losses[0], mu_cpu(ts))
+            runs[name] = (losses, ms, first)
+            del ts, step
+    finally:
+        dist.destroy_process_group()
+    (l_s, ms_s, f_s), (l_1, ms_1, f_1) = runs["sharded"], runs["single"]
+    held = hold_step(torch, *f_s, *f_1, "(a) 1x1 mesh step 1 vs make_train_step")
+    drift = max(abs(a - b) / abs(b) for a, b in zip(l_s, l_1))
+    if drift > 1e-3:
+        raise AssertionError(f"(a) the 10 losses drift apart by {drift:.3g}")
+    rec["a"] = {"backend": backend, "all_reduce": float(x.sum()), "losses": l_s,
+                "single_losses": l_1, "ms": ms_s, "single_ms": ms_1,
+                "ms_per_step": float(np.median(ms_s[1:])),
+                "single_ms_per_step": float(np.median(ms_1[1:])),
+                "loss_drift": drift, "step1": held, "collective_share": 0.0,
+                "seconds": time.perf_counter() - t0}
+    log(f"  (a) 1x1 over {backend}: {rec['a']['ms_per_step']:.2f} ms/step (make_train_step "
+        f"{rec['a']['single_ms_per_step']:.2f}); 10 losses within {drift:.3g}; no collective "
+        "(a group of one rank makes no call)")
+
+    # (b) 1x2 and the 2x1 decomposition, (c) 2x2: ranks on the one card over gloo.
+    for world, name in ((2, "b"), (4, "c")):
+        t0 = time.perf_counter()
+        logs = os.path.join(work, f"logs{world}")
+        os.makedirs(logs)
+        spawn_ranks(lambda r: ["--mesh-child", work, str(r), str(world)], world, logs)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{world}_{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        rec[name] = {"ranks": ranks, "seconds": time.perf_counter() - t0,
+                     "ms_per_step": r0["ms_per_step"],
+                     "collective_share": r0["collective_share"],
+                     "collective_ms_per_step": float(np.mean(r0["collective_ms"]))}
+        log(f"  ({name}) {r0['label']} over gloo, {world} ranks on one card: "
+            f"{r0['ms_per_step']:.2f} ms/step; with each collective timed alone "
+            f"({MESH_CLOCK_STEPS} further steps, {r0['collective_calls']} calls a step), "
+            f"{rec[name]['collective_ms_per_step']:.2f} ms/step in the collectives, "
+            f"{100 * r0['collective_share']:.1f}% of those steps' "
+            f"{float(np.mean(r0['clocked_ms'])):.2f} ms; losses {r0['losses'][0]:.5f} -> "
+            f"{r0['losses'][-1]:.5f}; densify "
+            f"{r0['densify']}; nets bitwise equal on every rank, data replicas equal; "
+            f"band frames held: " + "; ".join(
+                f"rank {x['rank']} {x['band_frame']['instances']} instances, backward "
+                f"{x['band_frame']['backward_max_err_over_row_scale']:.3g} of the row's scale"
+                for x in ranks) + f"  ({rec[name]['seconds']:.1f} s)")
+        held = r0["vs_single_device" if world == 2 else "vs_2x1"]
+        log(f"  ({name}) step 1 against the " + ("single-device step" if world == 2 else
+                                                 "2x1 decomposition (b) ran") +
+            f": loss rel {held['loss_rel']:.3g}; off the bar / max error over the leaf's "
+            "scale: " + ", ".join(f"{k} {g['off_bar']} / {g['max_err_over_scale']:.3g}"
+                                  for k, g in held["groups"].items()))
+        if world == 2:
+            log(f"  gloo with CUDA tensors as they are: {r0['probe']}")
+
+    # (d) the trainer CLI under torch.distributed.run, against a 1-rank run.
+    t0 = time.perf_counter()
+    argv = ["-s", src, "--iterations", str(CLI_MESH_ITERS), "--warmup_iters",
+            str(CLI_MESH_WARMUP), "--densify_from_iter", "40", "--densification_interval", "50",
+            "--checkpoint_iterations", str(CLI_MESH_ITERS), "--save_iterations",
+            str(CLI_MESH_ITERS), "--test_iterations", "-1", "--disable_viewer", "--quiet"]
+    cwd = os.path.join(work, "cli")
+    os.makedirs(cwd)
+    tl_path = os.path.join(work, "cli_timeline.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", os.path.abspath(__file__), "--cli-child", tl_path, *argv, "--n_model", "2"]
+    res = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                             os.path.abspath(__file__))))
+    if res.returncode != 0:
+        raise AssertionError(f"(d) torch.distributed.run exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    outs = os.listdir(os.path.join(cwd, "output"))
+    if len(outs) != 1:
+        raise AssertionError(f"(d) the ranks made {outs}: rank 0 alone must write")
+    with open(tl_path) as f:
+        timeline = json.load(f)
+    mesh_s = time.perf_counter() - t0
+    from gs_deformable_tpu_torch import train as train_cli
+
+    single = os.path.join(work, "cli_single")
+    t1 = time.perf_counter()
+    single_tl = []
+    train_cli.main([*argv, "-m", single], single_tl)
+    single_s = time.perf_counter() - t1
+    if file_layout(os.path.join(cwd, "output", outs[0])) != file_layout(single):
+        raise AssertionError(f"(d) layout {file_layout(os.path.join(cwd, 'output', outs[0]))} "
+                             f"differs from the 1-rank run's {file_layout(single)}")
+    losses = loss_by_iteration(timeline)
+    early = float(np.mean([losses[i] for i in range(1, 16)]))
+    late = float(np.mean([losses[i] for i in range(16, CLI_MESH_WARMUP + 1)]))
+    if not late < early:
+        raise AssertionError(f"(d) the loss did not fall: {early} -> {late}")
+    steps = [x for x in timeline if x["stage"] == "steps"]
+    dens = [x for x in timeline if x["stage"] == "densify"]
+    if len(dens) != 1 or not any(x["stage"] == "checkpoint" for x in timeline):
+        raise AssertionError("(d) no densify or no checkpoint")
+    step_ms = sum(x["ms"] for x in steps) / sum(x["to"] - x["from"] + 1 for x in steps)
+    single_steps = [x for x in single_tl if x["stage"] == "steps"]
+    single_ms = (sum(x["ms"] for x in single_steps)
+                 / sum(x["to"] - x["from"] + 1 for x in single_steps))
+    rec["d"] = {"argv": argv, "seconds": mesh_s, "single_seconds": single_s,
+                "loss_first_15": early, "loss_16_30": late, "ms_per_step": step_ms,
+                "single_ms_per_step": single_ms, "densify": dens[0],
+                "growths": [x for x in timeline if x["stage"] == "instance_growth"],
+                "layout": file_layout(single)}
+    log(f"  (d) train.main --n_model 2 under torch.distributed.run: {CLI_MESH_ITERS} "
+        f"iterations in {mesh_s:.1f} s ({step_ms:.1f} ms/step between drains; the 1-rank run "
+        f"{single_ms:.1f}); loss {early:.5f} (1-15) -> {late:.5f} (16-30); densify at "
+        f"{dens[0]['iteration']}: {dens[0]['n_alive']} alive; one output directory, the "
+        "1-rank run's layout")
+    return rec
+
+
 def _cli_template(torch, training, cfg, src, model, it):
     """A train state shaped as the trainer's checkpoint at ``it``: its
     capacity read from the file."""
@@ -2253,7 +2978,16 @@ def main():
         phase(f"phase 12: the trainer and render CLIs on phase 11's scene: se3 with the "
               f"opacity gate, {CLI_ITERS} iterations, warmup {CLI_WARMUP}")
         cli_rec = cli_phase(torch, timer, root)
-    log("  (d) a reduced se3 + gate step, card vs CPU:")
+        phase(f"phase 13: the native COLMAP reader on a model of {COLMAP_IMAGES} images x "
+              f"{COLMAP_OBS} observations and {COLMAP_POINTS} points3D")
+        os.makedirs(os.path.join(root, "colmap"))
+        colmap_rec = colmap_phase(torch, os.path.join(root, "colmap"))
+        phase(f"phase 14: the mesh on phase 11's scene: (a) 1x1 over NCCL, (b) 1x2 and (c) 2x2 "
+              f"ranks on the one card over gloo, (d) the trainer with --n_model 2 under "
+              f"torch.distributed.run")
+        log(f"  {card}")
+        mesh_rec = mesh_phase(torch, root)
+    log("  phase 12 (d): a reduced se3 + gate step, card vs CPU:")
     cli_rec["reduced_step"] = reduced_step_check(torch, deform_mode="se3", use_opacity_mask=True)
 
     def total(key, recs):
@@ -2307,6 +3041,18 @@ def main():
          "bound_by": pbwd["bound_by"], "library_ms": None,
          "blocks_per_sm": occupancy["composite_backward"], "calls": [pbwd]},
     ]
+    # The band frames that phase 14's ranks recorded inside their sharded
+    # runs, each rank's one frame held against the plain versions, and the
+    # launches of each rank's 10 steps.
+    mesh_ranks = mesh_rec["b"]["ranks"] + mesh_rec["c"]["ranks"]
+    for entry in kernels:
+        if entry["name"] in STEP_LAUNCHES:
+            entry["launches_mesh_rank"] = mesh_ranks[0]["launches"][entry["name"]]
+            entry["band_frames"] = [
+                {k: x["band_frame"][k] for k in ("label", "tiles", "Kp", "instances")}
+                | ({"max_err_over_row_scale": x["band_frame"]["backward_max_err_over_row_scale"]}
+                   if entry["name"] == "composite_backward" else {"bitwise_equal_plain": True})
+                for x in mesh_ranks]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "blocks_per_sm": occupancy, "frames": FRAMES, "frame_ms": frame_ms,
@@ -2314,7 +3060,8 @@ def main():
         "required_aligned": reqs[0][1], "instance_capacity": INSTANCE_CAPACITY, "Kp": Kp,
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
-        "scene": scene_rec, "cli": cli_rec, "kernels": kernels, "breakdown": breakdown,
+        "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
+        "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2330,4 +3077,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli-child"]:
+        sys.exit(cli_child(sys.argv[2:]))
     sys.exit(main())

@@ -3,11 +3,15 @@
 Each ``csrc/<name>.cu`` exports plain C functions that launch on the given
 stream and return ``cudaGetLastError()``.  ``build_all`` starts one ``nvcc``
 per source, all at once, and waits for them; ``load(name)`` builds (if
-needed) and opens one library.  Libraries land in ``kernels_build/`` inside
-the package (listed in ``.gitignore``) under a name keyed by a hash of the
-source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built at import
-time: the CPU has no ``nvcc``.
+needed) and opens one library.  A ``csrc/<name>.cpp`` (the host-side COLMAP
+reader) is built the same way by the host compiler (``c++`` or ``g++``,
+``-std=c++17 -O3 -shared -fPIC``) and opened with ``load``.
+Libraries land in ``kernels_build/`` inside the package (listed in
+``.gitignore``) under a name keyed by a hash of the source, the shared
+``csrc/*.cuh`` headers (CUDA sources) and the flags, so an edited source is
+rebuilt and a stale library is never loaded; each build writes a file of its
+own and renames it into place, so processes that build at once never load a
+partial library.  Nothing is built at import time: the CPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _libs: dict = {}
-BUILD_LOG: dict = {}  # name -> nvcc's output (ptxas register/spill report)
+BUILD_LOG: dict = {}  # name -> the compiler's output (ptxas register/spill report)
 
 
 def nvcc() -> str:
@@ -48,10 +54,26 @@ def nvcc() -> str:
     return path
 
 
+def host_compiler() -> str:
+    for cc in ("c++", "g++"):
+        path = shutil.which(cc)
+        if path is not None:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++) found")
+
+
+def _is_host(name: str) -> bool:
+    return os.path.exists(os.path.join(CSRC, f"{name}.cpp"))
+
+
 def _target(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fname in (f"{name}.cu", *headers):
+    if _is_host(name):
+        flags, files = HOST_FLAGS, (f"{name}.cpp",)
+    else:
+        flags = FLAGS
+        files = (f"{name}.cu", *sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")))
+    h = hashlib.sha256(" ".join(flags).encode())
+    for fname in files:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -63,7 +85,10 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    if _is_host(name):
+        cmd = [host_compiler(), *HOST_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cpp")]
+    else:
+        cmd = [nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -76,7 +101,7 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     BUILD_LOG[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"{proc.args[0]} failed for {proc.args[-1]}:\n{log}")
     os.replace(tmp, out)
 
 
@@ -92,7 +117,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Open ``lib<name>``, building it first if needed, with ``argtypes`` set.
 
     ``signatures`` maps each exported function to its ctypes argument types;
-    every function returns a ``cudaError_t`` as int.
+    every function returns a ``cudaError_t`` as int.  Pass ``{}`` to set the
+    types oneself (the host library's functions return pointers).
     """
     with _lock:
         lib = _libs.get(name)

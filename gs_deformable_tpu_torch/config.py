@@ -2,18 +2,19 @@
 copied with the same fields and defaults so a config built for one package
 reads the same in the other.
 
-Knobs split three ways in this port:
+Knobs split two ways in this port:
 
-- implemented: everything the deformable render path and the training
-  step read, ``grad_reduce``, ``bf16_cotangents`` and the packed knobs
+- implemented: everything the deformable render path, the training step
+  and the mesh (``parallel``: data and model axes over torch.distributed
+  ranks) read, ``grad_reduce``, ``bf16_cotangents`` and the packed knobs
   (``composite_mode="packed"``, ``sort_mode="packed"``, ``sub_chunk``)
   included;
 - documented no-ops: knobs that only shaped the TPU schedule (``tile_batch``,
   ``stream_chunks``, ``scan_mode``, ``defer_fwd_reductions``, ``block_rows``,
   ``fill_mode``).  The CUDA kernels compute the same values whatever they
-  are set to;
-- not yet ported: ``check_supported`` raises ``NotImplementedError`` naming
-  the slice of the port that will bring them.
+  are set to.
+
+``check_supported`` raises ``ValueError`` for a value no package takes.
 """
 
 from __future__ import annotations
@@ -150,11 +151,6 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-_LATER = {
-    "mesh": "the mesh slice (data and model axes across cards)",
-}
-
-
 def layout_unit(cfg: RasterizeConfig) -> int:
     """Rows each tile's instance range is aligned to: ``sub_chunk`` under
     ``composite_mode="packed"``, else ``chunk`` (rasterize.py:97-99 of the
@@ -179,14 +175,13 @@ def check_raster(cfg: RasterizeConfig) -> None:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for any knob of ``cfg`` this port does not implement yet."""
+    """Raise ``ValueError`` for a knob value of ``cfg`` that no package takes."""
     check_raster(cfg.raster)
     if cfg.model.deform_mode not in ("offset", "se3", "none"):
         raise ValueError(f"unknown deform_mode {cfg.model.deform_mode!r}")
-    if cfg.parallel.data_axis > 1 or cfg.parallel.model_axis > 1:
-        raise NotImplementedError(
-            f"parallel data_axis {cfg.parallel.data_axis} / model_axis "
-            f"{cfg.parallel.model_axis} arrive with {_LATER['mesh']}")
+    if cfg.parallel.data_axis < 1 or cfg.parallel.model_axis < 1:
+        raise ValueError(f"parallel data_axis {cfg.parallel.data_axis} / model_axis "
+                         f"{cfg.parallel.model_axis} must be at least 1")
     if cfg.deform.compute_dtype not in ("bfloat16", "float32", "float32_3x"):
         raise ValueError(
             f"unknown deform.compute_dtype {cfg.deform.compute_dtype!r}")

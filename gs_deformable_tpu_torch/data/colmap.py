@@ -1,9 +1,10 @@
 """COLMAP model parsing (binary and text), numpy and the standard library.
 
 The port's own copy of ``gs_deformable_tpu/data/colmap.py`` (wire formats of
-the reference's colmap_loader.py:83-294).  It parses in Python only: the JAX
-package's native C++ fast path (``io/native.py``, ``native/colmap_io.cpp``)
-is not ported yet.
+the reference's colmap_loader.py:83-294).  The three binary readers go
+through the port's native C++ reader (``io/native.py``,
+``csrc/colmap_io.cpp``) when it is available, and parse in Python when it
+is not or when its read fails (``None``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -84,7 +85,13 @@ def rotmat2qvec(R: np.ndarray) -> np.ndarray:
 
 def read_points3d_binary(path: str):
     """points3D.bin -> (xyz (N,3), rgb (N,3), errors (N,1))
-    (colmap_loader.py:101-131)."""
+    (colmap_loader.py:101-131); the native reader when available."""
+    from ..io import native
+
+    if native.available():
+        res = native.read_points3d_bin(path)
+        if res is not None:
+            return res
     with open(path, "rb") as f:
         n = struct.unpack("<Q", f.read(8))[0]
         xyz = np.empty((n, 3))
@@ -116,7 +123,16 @@ def read_points3d_text(path: str):
 
 
 def read_intrinsics_binary(path: str) -> Dict[int, ColmapCamera]:
-    """cameras.bin (colmap_loader.py:221-245)."""
+    """cameras.bin (colmap_loader.py:221-245); the native reader when available."""
+    from ..io import native
+
+    if native.available():
+        res = native.read_cameras_bin(path)
+        if res is not None:
+            return {c["id"]: ColmapCamera(id=c["id"], model=CAMERA_MODELS[c["model_id"]][0],
+                                          width=c["width"], height=c["height"],
+                                          params=c["params"][:CAMERA_MODELS[c["model_id"]][1]])
+                    for c in res}
     cams = {}
     with open(path, "rb") as f:
         n = struct.unpack("<Q", f.read(8))[0]
@@ -146,7 +162,19 @@ def read_intrinsics_text(path: str) -> Dict[int, ColmapCamera]:
 
 
 def read_extrinsics_binary(path: str) -> Dict[int, ColmapImage]:
-    """images.bin (colmap_loader.py:186-219), 2D tracks included."""
+    """images.bin (colmap_loader.py:186-219).  The native reader, when
+    available, skips the 2D tracks (nothing downstream reads them): ``xys``
+    (0, 2) and ``point3d_ids`` (0,) int64; the Python parser reads them."""
+    from ..io import native
+
+    if native.available():
+        res = native.read_images_bin(path)
+        if res is not None:
+            return {im["id"]: ColmapImage(id=im["id"], qvec=im["qvec"], tvec=im["tvec"],
+                                          camera_id=im["camera_id"], name=im["name"],
+                                          xys=np.empty((0, 2)),
+                                          point3d_ids=np.empty(0, np.int64))
+                    for im in res}
     images = {}
     with open(path, "rb") as f:
         n = struct.unpack("<Q", f.read(8))[0]
@@ -161,6 +189,8 @@ def read_extrinsics_binary(path: str) -> Dict[int, ColmapImage]:
                 c = f.read(1)
                 if c == b"\x00":
                     break
+                if not c:  # the JAX parser loops forever here
+                    raise EOFError(f"{path} ends inside an image name")
                 name += c
             n2d = struct.unpack("<Q", f.read(8))[0]
             rec_t = np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")])

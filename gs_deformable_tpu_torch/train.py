@@ -19,8 +19,19 @@ plain PyTorch versions of the kernels).  The host loop of the reference:
 - ``cfg_args`` in the output directory for the render CLI.
 
 The output directory has the JAX CLI's layout, and ``--start_checkpoint``
-takes a checkpoint of either package.  ``--n_data`` or ``--n_model`` above
-1 raises: the mesh is not ported yet.
+takes a checkpoint of either package.
+
+``--n_data`` / ``--n_model`` above 1 train over a mesh of processes
+(``parallel/sharding.py``), one per device, started by torchrun::
+
+    torchrun --nproc_per_node 2 -m gs_deformable_tpu_torch.train -s <scene> --n_model 2
+
+(``--device cpu`` runs the ranks on the CPU over gloo; several ranks on one
+card also talk over gloo).  ``n_data * n_model`` must equal the world size,
+or the run raises ``ValueError``.  Every rank draws the same camera sequence
+from ``--seed``, in groups of ``n_data``, and takes its own data row's
+camera; rank 0 alone writes the output directory, from the state gathered
+in JAX's row order.  The viewer is not served under a mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import device as device_rules
 from . import training
@@ -55,6 +67,8 @@ from .io import checkpoint as ckpt_io
 from .io import model_ply
 from .models.gaussians import init_from_points
 from .ops.binning import aligned_capacity
+from .parallel import multihost
+from .parallel import sharding as par
 from .renderer import CameraArrays
 
 CHUNK_MAX = 10
@@ -91,9 +105,9 @@ def build_argparser() -> argparse.ArgumentParser:
         default = getattr(o, name)
         p.add_argument(f"--{name}", type=type(default), default=default)
     p.add_argument("--n_data", type=int, default=1,
-                   help="data-axis devices; above 1 raises until the mesh is ported")
+                   help="data-axis ranks (cameras a step); start the ranks with torchrun")
     p.add_argument("--n_model", type=int, default=1,
-                   help="model-axis devices; above 1 raises until the mesh is ported")
+                   help="model-axis ranks (slices of the gaussians); start with torchrun")
     p.add_argument("--capacity", type=int, default=0,
                    help="gaussian capacity; 0 = 2x the initial points, to a power of two")
     # Start snug and grow on overflow (the sort and binning cost scale with it).
@@ -209,13 +223,18 @@ def _frame_key(cam: Camera):
 
 class Trainer:
     """The train state and the step, chunk, eval and densify functions,
-    cached by (frame size, fovs, SH degree)."""
+    cached by (frame size, fovs, SH degree).
+
+    With a ``mesh`` (``parallel.sharding``) the state is this rank's slice
+    once ``place()`` has run, the functions are the sharded ones, and
+    ``full_state()`` gathers the whole state (every rank must call it)."""
 
     def __init__(self, cfg: Config, scene: Scene, seed: int, device="cuda",
-                 capacity: int = 0):
+                 capacity: int = 0, mesh: Optional[par.Mesh] = None):
         self.cfg = cfg
         self.scene = scene
         self.device = device_rules.resolve(device)
+        self.mesh = mesh
         self.spatial_lr_scale = scene.cameras_extent
         self.active_sh_degree = 0
         self._step_cache: Dict[tuple, object] = {}
@@ -233,38 +252,63 @@ class Trainer:
         net, latent = training.init_nets(cfg, seed, self.device)
         self.ts = training.init_train_state(state, net, seed, latent)
 
+    def place(self):
+        """Shard the state over the mesh's model axis (with the interleave)."""
+        if self.mesh is not None:
+            self.ts = par.shard_train_state(self.ts, self.mesh)
+            print(f"Mesh: data={self.mesh.n_data} x model={self.mesh.n_model} (rank "
+                  f"{self.mesh.rank}: data row {self.mesh.data_index}, slice "
+                  f"{self.mesh.model_index}, {self.ts.gaussians.capacity} rows)")
+
+    def full_state(self) -> training.TrainState:
+        return self.ts if self.mesh is None else par.gather_train_state(self.ts, self.mesh)
+
     def _frame_kw(self, cam: Camera) -> dict:
         return dict(width=cam.width, height=cam.height, tan_fovx=cam.tan_fovx,
-                    tan_fovy=cam.tan_fovy, active_sh_degree=self.active_sh_degree,
-                    device=self.device)
+                    tan_fovy=cam.tan_fovy, active_sh_degree=self.active_sh_degree)
 
     def step_fn(self, cam: Camera):
         key = _frame_key(cam) + (self.active_sh_degree,)
         if key not in self._step_cache:
-            self._step_cache[key] = training.make_train_step(
-                self.cfg, spatial_lr_scale=self.spatial_lr_scale, **self._frame_kw(cam))
+            kw = dict(spatial_lr_scale=self.spatial_lr_scale, **self._frame_kw(cam))
+            self._step_cache[key] = (
+                training.make_train_step(self.cfg, device=self.device, **kw)
+                if self.mesh is None else par.make_sharded_train_step(self.cfg, self.mesh, **kw))
         return self._step_cache[key]
 
     def chunk_fn(self, cam: Camera, chunk_max: int):
         key = _frame_key(cam) + (self.active_sh_degree, chunk_max)
         if key not in self._chunk_cache:
-            self._chunk_cache[key] = training.make_chunk_step(
-                self.cfg, spatial_lr_scale=self.spatial_lr_scale, chunk_max=chunk_max,
-                **self._frame_kw(cam))
+            kw = dict(spatial_lr_scale=self.spatial_lr_scale, chunk_max=chunk_max,
+                      **self._frame_kw(cam))
+            self._chunk_cache[key] = (
+                training.make_chunk_step(self.cfg, device=self.device, **kw)
+                if self.mesh is None else par.make_sharded_chunk_step(self.cfg, self.mesh, **kw))
         return self._chunk_cache[key]
+
+    def band_tiles(self, cam: Camera) -> int:
+        """Tiles one composite covers: the frame's, or a band's under a mesh."""
+        n_model = 1 if self.mesh is None else self.mesh.n_model
+        return par.band_tiles(self.cfg, n_model, cam.width, cam.height)
 
     def eval_batch_fn(self, cam: Camera):
         key = ("batch",) + _frame_key(cam) + (self.active_sh_degree,)
         if key not in self._eval_cache:
             self._eval_cache[key] = training.make_eval_render_batch(
-                self.cfg, **self._frame_kw(cam))
+                self.cfg, device=self.device, **self._frame_kw(cam))
         return self._eval_cache[key]
 
     def densify_fn(self, use_screen_prune: bool):
         if use_screen_prune not in self._densify_cache:
-            self._densify_cache[use_screen_prune] = training.make_densify_step(
-                self.cfg, extent=self.scene.cameras_extent,
-                use_screen_prune=use_screen_prune, device=self.device)
+            if self.mesh is not None:
+                fn = par.make_sharded_densify_step(self.cfg, self.mesh,
+                                                   extent=self.scene.cameras_extent,
+                                                   use_screen_prune=use_screen_prune)
+            else:
+                fn = training.make_densify_step(self.cfg, extent=self.scene.cameras_extent,
+                                                use_screen_prune=use_screen_prune,
+                                                device=self.device)
+            self._densify_cache[use_screen_prune] = fn
         return self._densify_cache[use_screen_prune]
 
     def reset_fn(self):
@@ -281,15 +325,21 @@ class Trainer:
         self._reset_fn = None
 
     def maybe_grow(self) -> Optional[int]:
-        """Double the capacity past 80% alive; the new capacity, or None."""
+        """Double the capacity past 80% alive; the new capacity, or None.
+        Under a mesh the whole state is gathered, grown and sharded again
+        with the interleave, in JAX's row order (train.py:390-401 of the JAX
+        package)."""
         g = self.ts.gaussians
-        alive = int(g.num_alive)
-        if alive <= 0.8 * g.capacity:
+        if self.mesh is None:
+            alive, cap = int(g.num_alive), g.capacity
+        else:
+            alive, cap = par.global_alive(self.ts, self.mesh), g.capacity * self.mesh.n_model
+        if alive <= 0.8 * cap:
             return None
-        new_cap = g.capacity * 2
-        print(f"\n[capacity] growing {g.capacity} -> {new_cap} (alive {alive})")
-        self.ts = training.grow_capacity(self.ts, new_cap)
-        return new_cap
+        print(f"\n[capacity] growing {cap} -> {2 * cap} (alive {alive})")
+        self.ts = training.grow_capacity(self.full_state(), 2 * cap)
+        self.place()
+        return 2 * cap
 
     def one_up_sh_degree(self):
         if self.active_sh_degree < self.cfg.model.sh_degree:
@@ -310,10 +360,12 @@ def nets_dict(ts: training.TrainState) -> dict:
 
 
 def training_report(trainer: Trainer, iteration: int, bg, tb=None,
-                    first_test_iter: bool = False, device_gt=None):
+                    first_test_iter: bool = False, device_gt=None, ts=None):
     """Mean L1 and PSNR over up to 20 test views and 5 train views, ten
-    views a call; with a tensorboardX writer also the first five renders of
-    each set, the opacity histogram and the point count."""
+    views a call, of ``ts`` (default ``trainer.ts``); with a tensorboardX
+    writer also the first five renders of each set, the opacity histogram
+    and the point count."""
+    ts = ts or trainer.ts
     results = {}
     dev = trainer.device
     gt_of = device_gt or (lambda c: torch.from_numpy(c.image).to(dev))
@@ -322,7 +374,7 @@ def training_report(trainer: Trainer, iteration: int, bg, tb=None,
         if not cams:
             continue
         cams = cams[:20]
-        res = training.eval_sweep(trainer.eval_batch_fn, trainer.ts, cams,
+        res = training.eval_sweep(trainer.eval_batch_fn, ts, cams,
                                   lambda c: cam_arrays(c, dev), gt_of, bg, iteration, batch=10)
         if tb is not None:
             for idx, cam in enumerate(cams[:5]):
@@ -339,7 +391,7 @@ def training_report(trainer: Trainer, iteration: int, bg, tb=None,
             tb.add_scalar(f"{name}/loss_viewpoint - l1_loss", results[name][0], iteration)
             tb.add_scalar(f"{name}/loss_viewpoint - psnr", results[name][1], iteration)
     if tb is not None:
-        gs = trainer.ts.gaussians
+        gs = ts.gaussians
         op = torch.sigmoid(gs.opacity)[gs.alive].cpu().numpy()
         if op.size:
             tb.add_histogram("scene/opacity_histogram", op, iteration)
@@ -394,6 +446,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def join_mesh(cfg: Config, device) -> Optional[par.Mesh]:
+    """The mesh of ``cfg.parallel``, joining the process group from torchrun's
+    variables first if needed; None for one process and a 1x1 mesh.  Raises
+    ``ValueError`` when ``n_data * n_model`` is not the world size."""
+    n_data, n_model = cfg.parallel.data_axis, cfg.parallel.model_axis
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_data * n_model == 1 and world == 1 and not dist.is_initialized():
+        return None
+    if not dist.is_initialized() and world > 1:
+        device = multihost.initialize_from_env(device)
+    return multihost.global_mesh(n_data, n_model, device)
+
+
+def _shared_output_dir(args, mesh: Optional[par.Mesh]) -> str:
+    """Rank 0 makes the output directory (``prepare_output_dir``); every rank
+    gets its path."""
+    path = [prepare_output_dir(args) if mesh is None or mesh.rank == 0 else None]
+    if mesh is not None and mesh.world_group is not None:
+        dist.broadcast_object_list(path, src=0)
+    return path[0]
+
+
 def train(args, timeline: Optional[List[dict]] = None) -> str:
     """Run the training loop of ``args``; returns the output directory.
 
@@ -409,7 +483,12 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
     cfg = config_from_args(args)
     check_supported(cfg)
     dev = device_rules.resolve(args.device)
-    model_path = prepare_output_dir(args)
+    joined = not dist.is_initialized()
+    mesh = join_mesh(cfg, dev)
+    if mesh is not None:
+        dev = mesh.device
+    writer = mesh is None or mesh.rank == 0
+    model_path = _shared_output_dir(args, mesh)
     print("Output folder:", model_path)
     cam_rng = random.Random(args.seed)
 
@@ -423,27 +502,35 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
                                  ms=(now - mark[0]) * 1e3, **kw))
         mark[0] = now
 
-    scene = Scene(source_path=args.source_path, model_path=model_path, images=args.images,
-                  eval=args.eval, white_background=args.white_background,
+    scene = Scene(source_path=args.source_path, model_path=model_path if writer else "",
+                  images=args.images, eval=args.eval, white_background=args.white_background,
                   resolution=args.resolution, random_init_points=cfg.model.random_init_points,
                   rng=np.random.RandomState(args.seed), shuffle_rng=random.Random(args.seed))
     note("scene_load", 0)
-    trainer = Trainer(cfg, scene, args.seed, dev, args.capacity)
-    note("init", 0)
-
-    tb = None
-    try:
-        from tensorboardX import SummaryWriter
-
-        tb = SummaryWriter(model_path)
-    except Exception:
-        print("tensorboardX not available: not logging progress")
+    trainer = Trainer(cfg, scene, args.seed, dev, args.capacity, mesh)
 
     first_iter = 0
     if args.start_checkpoint:
         trainer.ts, first_iter = ckpt_io.load_checkpoint(args.start_checkpoint, trainer.ts)
         print(f"Resumed from {args.start_checkpoint} at iteration {first_iter}")
         trainer.active_sh_degree = min(first_iter // 1000, cfg.model.sh_degree)
+    trainer.place()
+    note("init", 0)
+
+    tb = None
+    if writer:
+        try:
+            from tensorboardX import SummaryWriter
+
+            tb = SummaryWriter(model_path)
+        except Exception:
+            print("tensorboardX not available: not logging progress")
+
+    def save_ply(iteration):
+        full = trainer.full_state()
+        if writer:
+            model_ply.save_ply(scene.point_cloud_dir(iteration), full.gaussians,
+                               nets=nets_dict(full))
 
     bg = torch.tensor([1.0, 1.0, 1.0] if args.white_background else [0.0, 0.0, 0.0],
                       device=dev)
@@ -486,10 +573,23 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
     def next_camera():
         if not viewpoint_stack:
             viewpoint_stack.extend(trainer.scene.get_train_cameras())
-        cam = viewpoint_stack.pop(cam_rng.randint(0, len(viewpoint_stack) - 1))
-        return cam, device_gt(cam)
+        return viewpoint_stack.pop(cam_rng.randint(0, len(viewpoint_stack) - 1))
+
+    # One camera a data row per iteration: every rank draws the same groups
+    # and takes its own row's (train.py:704-770 of the JAX package).
+    n_data = 1 if mesh is None else mesh.n_data
+    row = 0 if mesh is None else mesh.data_index
+
+    def next_group():
+        group = [next_camera() for _ in range(n_data)]
+        if any(_frame_key(c) != _frame_key(group[0]) for c in group):
+            raise ValueError("--n_data > 1 needs uniform camera resolutions in a batch")
+        return group
 
     viewer_on = not args.disable_viewer
+    if viewer_on and mesh is not None:
+        print("viewer disabled: not served under a mesh")
+        viewer_on = False
     if viewer_on:
         try:
             from . import viewer
@@ -520,17 +620,19 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
                 prof.start()
             elif it0 == args.profile_start + args.profile_steps and prof is not None:
                 prof.stop()
-                os.makedirs(args.profile_dir, exist_ok=True)
-                path = os.path.join(args.profile_dir, f"trace_{args.profile_start}.json")
-                prof.export_chrome_trace(path)
+                if writer:
+                    os.makedirs(args.profile_dir, exist_ok=True)
+                    path = os.path.join(args.profile_dir, f"trace_{args.profile_start}.json")
+                    prof.export_chrome_trace(path)
+                    print(f"\n[profile] trace written to {path}")
                 prof = None
-                print(f"\n[profile] trace written to {path}")
         if it0 % 1000 == 0:
             trainer.one_up_sh_degree()
 
         end = chunk_end_iteration(it0, cfg, args, CHUNK_MAX) if chunking else it0
         h = end - it0 + 1
-        pairs = [next_camera() for _ in range(h)]
+        groups = [next_group() for _ in range(h)]
+        pairs = [(grp[row], device_gt(grp[row])) for grp in groups]
         cam = pairs[0][0]
         if h >= 2 and all(_frame_key(c) == _frame_key(cam) for c, _ in pairs):
             pad = CHUNK_MAX - h
@@ -557,7 +659,9 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
 
         if cfg.pipeline.debug and not np.isfinite(float(metrics["loss"])):
             snap = os.path.join(model_path, "snapshot_fw.npz")
-            _dump_snapshot(snap, trainer.ts, cam, iteration)
+            full = trainer.full_state()
+            if writer:
+                _dump_snapshot(snap, full, cam, iteration)
             raise RuntimeError(f"[debug] non-finite loss at iteration {iteration}; "
                                f"render inputs dumped to {snap}")
 
@@ -570,9 +674,8 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
             ema_loss = 0.4 * loss + 0.6 * ema_loss
             r = cfg.raster
             unit = layout_unit(r)
-            tiles = (((cam.width + r.tile_x - 1) // r.tile_x)
-                     * ((cam.height + r.tile_y - 1) // r.tile_y))
-            kp_now = aligned_capacity(r.instance_capacity, tiles, unit, r.aligned_slack)
+            kp_now = aligned_capacity(r.instance_capacity, trainer.band_tiles(cam), unit,
+                                      r.aligned_slack)
             drained = [(int(a), int(b), None if o is None else int(o))
                        for a, b, o in pending_req]
             pending_req.clear()
@@ -608,7 +711,7 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
                 trainer.clear_caches()
                 note("instance_growth", iteration, required=req, required_aligned=req_al,
                      capacity=new_cap, aligned_slack=new_slack)
-            if not args.quiet and iteration % 200 == 0:
+            if not args.quiet and writer and iteration % 200 == 0:
                 el = time.time() - t_start
                 print(f"iter {iteration}: loss {ema_loss:.5f} "
                       f"alive {int(metrics['n_alive'])} "
@@ -622,15 +725,16 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
                               / max(iteration - first_iter, 1) * 1e3, iteration)
 
         if iteration in args.test_iterations:
-            training_report(trainer, iteration, bg, tb,
-                            first_test_iter=(iteration == min(args.test_iterations)),
-                            device_gt=device_gt)
+            full = trainer.full_state()
+            if writer:
+                training_report(trainer, iteration, bg, tb,
+                                first_test_iter=(iteration == min(args.test_iterations)),
+                                device_gt=device_gt, ts=full)
             note("test_report", iteration)
 
         if iteration in args.save_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
-            model_ply.save_ply(scene.point_cloud_dir(iteration), trainer.ts.gaussians,
-                               nets=nets_dict(trainer.ts))
+            save_ply(iteration)
             note("save", iteration)
 
         if iteration < cfg.opt.densify_until_iter:
@@ -653,18 +757,23 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
 
         if iteration in args.checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
-            path = os.path.join(model_path, "ckpt_save", f"chkpnt_{iteration}.npz")
-            ckpt_io.save_checkpoint(path, trainer.ts, iteration)
+            full = trainer.full_state()
+            if writer:
+                path = os.path.join(model_path, "ckpt_save", f"chkpnt_{iteration}.npz")
+                ckpt_io.save_checkpoint(path, full, iteration)
             note("checkpoint", iteration)
 
     if prof is not None:
         prof.stop()
     if tb is not None:
         tb.close()
-    model_ply.save_ply(scene.point_cloud_dir(cfg.opt.iterations), trainer.ts.gaussians,
-                       nets=nets_dict(trainer.ts))
+    save_ply(cfg.opt.iterations)
     note("save", cfg.opt.iterations)
     print(f"\nTraining complete in {time.time() - t_start:.1f}s")
+    if mesh is not None and mesh.world_group is not None:
+        dist.barrier()
+        if joined:
+            dist.destroy_process_group()
     return model_path
 
 

@@ -247,6 +247,16 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
     r = cfg.raster
     num_tiles = ((width + r.tile_x - 1) // r.tile_x) * ((height + r.tile_y - 1) // r.tile_y)
     kp = aligned_capacity(r.instance_capacity, num_tiles, layout_unit(r), r.aligned_slack)
+    return chunk_loop(step, kp=kp, instance_capacity=r.instance_capacity, chunk_max=chunk_max,
+                      device=dev)
+
+
+def chunk_loop(step: Callable, *, kp: int, instance_capacity: int, chunk_max: int, device):
+    """The host loop of ``make_chunk_step`` (and of the mesh's
+    ``make_sharded_chunk_step``) over ``step(ts, cam, gt, bg, iteration)``:
+    a step overflows when it needs more than ``instance_capacity`` instances
+    or more than ``kp`` aligned rows."""
+    dev = device_rules.resolve(device)
     last_keys = ("loss", "ll1", "ssim", "psnr", "offset_norm", "n_alive")
 
     def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
@@ -262,7 +272,8 @@ def make_chunk_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
         for i in range(n):
             cam = CameraArrays(*(x[i] for x in cams))
             ts, m = step(ts, cam, gts[i], bg, it0 + i)
-            over = (m["required_instances"] > r.instance_capacity) | (m["required_aligned"] > kp)
+            over = ((m["required_instances"] > instance_capacity)
+                    | (m["required_aligned"] > kp))
             if losses is not None:
                 losses.append(m["loss"])
             metrics.update({k: m[k] for k in last_keys})

@@ -9,7 +9,8 @@ Modelled on tests/test_cli_e2e.py, at its sizes (32x32 views, 3 train and
 - se3 with ``--use_opacity_mask``: the render CLI's loading path (PLY and
   five nets) renders bitwise as the checkpoint state, and the gate is used;
 - the eval-time overlay of training flags; ``--device cuda`` raising
-  without a GPU;
+  without a GPU, and a mesh bigger than the world;
+- ``--n_model 2`` over 2 gloo ranks under torch.distributed.run;
 - a model and a checkpoint written by the JAX train CLI (se3 with the gate,
   fp32 MLP tier): the port's render CLI writes PNGs at most one code value
   from the JAX render CLI's (the image bar, rtol 1e-4 / atol 2e-5 before
@@ -22,6 +23,8 @@ import io
 import os
 import re
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -185,8 +188,57 @@ def test_device_cuda_raises_without_gpu(tmp_path, monkeypatch):
     assert not os.path.exists(os.path.join(out, "point_cloud"))
     with pytest.raises(RuntimeError, match="cuda"):
         render_cli.main(["-m", out])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # A mesh whose size is not the world size (one process here) raises.
+    with pytest.raises(ValueError, match="world size is 1"):
         train.main(argv + ["--device", "cpu", "--n_data", "2"])
+
+
+def layout(root):
+    """Files under ``root`` (tensorboard event files by count)."""
+    out = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), root)
+            out.append("events.out.tfevents" if f.startswith("events.out.tfevents") else rel)
+    return sorted(out)
+
+
+@pytest.mark.parametrize("axis", ["--n_model", "--n_data"])
+def test_mesh_two_ranks(tmp_path, axis):
+    """``--n_model 2`` (or ``--n_data 2``) with ``--device cpu`` over 2 gloo
+    ranks under torch.distributed.run, 12 iterations with a densify at 8: one
+    output directory (rank 0 makes it; no ``-m``, so another writer would
+    make its own), the 1-rank run's layout, and the saved PLY equal to the
+    gathered state in the checkpoint."""
+    scene = small_scene(tmp_path)
+    run_flags = ["--iterations", "12", "--save_iterations", "12", "--checkpoint_iterations",
+                 "12", *flags(densify_from_iter=4, densification_interval=4,
+                              densify_until_iter=12)]
+    cwd = tmp_path / "mesh"
+    cwd.mkdir()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", "-m", "gs_deformable_tpu_torch.train",
+                          "-s", scene, axis, "2", *run_flags],
+                         cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    outs = os.listdir(cwd / "output")
+    assert len(outs) == 1, outs
+    mesh_out = str(cwd / "output" / outs[0])
+    single = str(tmp_path / "single")
+    run(["-s", scene, "-m", single, *run_flags])
+    assert layout(mesh_out) == layout(single)
+    ck = np.load(os.path.join(mesh_out, "ckpt_save", "chkpnt_12.npz"))
+    alive = ck[".gaussians/.alive"]
+    assert alive.shape == (256,) and 0 < alive.sum() < 256
+    state, _ = model_ply.load_ply(os.path.join(mesh_out, "point_cloud", "iteration_12",
+                                               "point_cloud.ply"), 256, 0, device="cpu")
+    n = int(alive.sum())
+    assert int(state.alive.sum()) == n
+    for name in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation"):
+        np.testing.assert_array_equal(getattr(state, name).numpy()[:n],
+                                      ck[f".gaussians/.{name}"][alive], err_msg=name)
 
 
 @pytest.fixture(scope="module")

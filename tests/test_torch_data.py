@@ -9,8 +9,9 @@ reading the other's cloud.  The JAX package draws from numpy's and
 Python's global generators, seeded just before its call; the port gets
 ``np.random.RandomState(seed)`` and ``random.Random(seed)``, which give the
 same streams.  Every camera field, ground-truth image, cloud, normalisation
-and written file must be bitwise equal.  The JAX COLMAP parsers are held
-to their Python path (the native fast path skips the 2D tracks).
+and written file must be bitwise equal.  Both packages' COLMAP parsers
+are held to their Python path (the native readers skip the 2D tracks;
+tests/test_torch_native.py holds them to the Python parsers).
 """
 
 import os
@@ -29,6 +30,7 @@ from gs_deformable_tpu.data import scene as jscene
 from gs_deformable_tpu.io import native
 from gs_deformable_tpu.ops import transforms as jtf
 from gs_deformable_tpu_torch.data import cameras, colmap, readers, scene
+from gs_deformable_tpu_torch.io import native as tnative
 from gs_deformable_tpu_torch.ops import transforms as tf
 
 from synthetic_scene import build_blender_scene
@@ -41,6 +43,7 @@ SEED = 7
 @pytest.fixture(autouse=True)
 def python_colmap(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def build_colmap_bin_scene(root, n_frames=12, size=40):

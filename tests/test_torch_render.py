@@ -32,6 +32,7 @@ from gs_deformable_tpu_torch.io import model_ply
 from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
 from gs_deformable_tpu_torch.models.gaussians import GaussianState
 from gs_deformable_tpu_torch.ops.kernels import launch_counts
+from gs_deformable_tpu_torch.parallel import multihost, sharding
 
 W, H = 80, 48
 FOVX = 0.9
@@ -192,13 +193,28 @@ def test_no_quiet_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         renderer.render(state, None, cam, iteration=0, bg=torch.zeros(3),
                         cfg=cfg.replace(model=config.ModelConfig(deform_mode="none")), **kw)
+    # The mesh: its constructors and makers take the card unless told otherwise.
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharding.make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.initialize_from_env()
+    mesh = sharding.Mesh(1, 1, 0, 0, torch.device("cuda"))
+    for make in (lambda: sharding.make_sharded_train_step(cfg, mesh, spatial_lr_scale=1.0, **kw),
+                 lambda: sharding.make_sharded_chunk_step(cfg, mesh, spatial_lr_scale=1.0, **kw),
+                 lambda: sharding.make_sharded_densify_step(cfg, mesh, 1.0, False),
+                 lambda: sharding.make_sharded_opacity_reset(cfg, mesh),
+                 lambda: sharding.batch_cameras([cam])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
 
 
 def test_unported_knobs_raise():
-    for over in (dict(parallel=config.ParallelConfig(data_axis=2)),
-                 dict(parallel=config.ParallelConfig(model_axis=2))):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            config.check_supported(config.Config(**over))
+    # The mesh is ported: data and model axes above 1 pass, below 1 raise.
+    for axes in (dict(data_axis=2), dict(model_axis=2), dict(data_axis=2, model_axis=4)):
+        config.check_supported(config.Config(parallel=config.ParallelConfig(**axes)))
+    for axes in (dict(data_axis=0), dict(model_axis=0)):
+        with pytest.raises(ValueError, match="at least 1"):
+            config.check_supported(config.Config(parallel=config.ParallelConfig(**axes)))
     config.check_supported(config.Config())
     # The deformation variants are ported.
     for model in (config.ModelConfig(deform_mode="se3"),
