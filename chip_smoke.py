@@ -193,9 +193,44 @@ Phases (any failure raises and the script exits non-zero):
    writes), the layout of the same run on one rank (run after it), the
    mean loss of iterations 16-30 under that of 1-15; ms/step of both.
 
+15. the dense oracle and the quality path: (a) a seeded frame of 2,000
+   gaussians at 256x256 (through the port's preprocess, 3-sigma rects,
+   exact depth ties) rendered by the tile path (``ops.rasterize.
+   rasterize_arrays``: binning with the ordered fills, the composite
+   forward, and under autograd the backward) with the tile cull off and on,
+   and by the dense oracle (``ops.rasterize_dense``, a loop over the
+   gaussians with no code shared with the tile path): image rtol 1e-4 /
+   atol 2e-5, final_T atol 2e-6, n_contrib exact with the cull off, the
+   gradients of a seeded cotangent at rtol 5e-4 / atol 2e-5 x scale (the
+   JAX bars of tests/test_rasterize.py:64-98); the oracle's time and peak
+   memory; (b) the quality scene of tools/quality_r04.py:55-58 built on the
+   card by ``blender_scene`` (the dense oracle draws its ground truths):
+   40 train and 4 test views of 400x400, 24 animated blobs, seed 3, timed;
+   (c) ``train.main`` on it with quality_r04.py's flags (``--eval
+   --random_init_points 20000 --instance_capacity 1048576 --warmup_iters
+   800``) to 3,100 iterations with test reports at 1,000, 2,000 and 3,100
+   (26 densifies, the opacity reset at 3,000 and 100 iterations of
+   recovery; the learning-rate schedules do not depend on --iterations),
+   then ``render_cli.main`` on the saved model; the PSNR parser reads what
+   both print.  Gate: the held-out test PSNR the trainer reports at 3,100
+   at least 33.0 dB (the TPU run of QUALITY_r04.json read 34.58 there).
+   The launches of the run (one forward, backward, place and two prefix
+   fills a step, one forward, place and two prefix fills a report view),
+   and the kernels held against their plain versions on the step after
+   the reset (iteration 3,001), recorded as it ran.  Prints the PSNR
+   trajectory, the final PSNR/SSIM, the gaussians after each densify,
+   the instance-capacity growths, ms/step between counter drains, the
+   train and eval wall times and the card's name and power limit.
+
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
 PERF.md section 5).
+
+``python3 chip_smoke.py --quality_full`` runs phases 1-2 and phase 15 (b)
+and then the reference regime of tools/quality_r05.py instead of (c):
+40,000 iterations, warmup 3,000, test reports at its milestones, the
+render CLI, no gate (about 35 minutes on an NVIDIA H100 80GB HBM3 at
+700 W); the record goes to chiprun_out/quality_full.json.
 
 Each phase's first line shows the seconds since the start.  Prints a JSON
 line of kernel results, then as its last line
@@ -205,8 +240,10 @@ The full record goes to chiprun_out/chip_smoke.json.
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -274,6 +311,22 @@ COLMAP_IMAGES, COLMAP_OBS, COLMAP_POINTS = 200, 5000, 180_000
 MESH_VIEWS, MESH_STEPS, MESH_ITER0, MESH_ICAP = 10, 10, 3001, 1 << 22
 MESH_CLOCK_STEPS = 3  # further steps of (b)/(c) with the collectives timed alone
 CLI_MESH_ITERS, CLI_MESH_WARMUP = 60, 30
+# Phase 15: (a) a frame for the tile path against the dense oracle, sized so
+# that the oracle's forward and autograd backward take seconds and a few GiB;
+# the quality drive of tools/quality_r04.py: its scene (:55-58), drawn by the
+# dense oracle, and the trainer's flags (:67-78) to 3,100 iterations, past
+# the opacity reset at 3,000 (the TPU run of QUALITY_r04.json read 34.58 dB
+# held-out there); with --quality_full the reference regime of
+# tools/quality_r05.py (40,000 iterations, warmup 3,000, milestones :44-47).
+DENSE_N, DENSE_SIZE, DENSE_SEED = 2000, 256, 15
+QUALITY_SIZE, QUALITY_TRAIN, QUALITY_TEST, QUALITY_BLOBS, QUALITY_SEED = 400, 40, 4, 24, 3
+QUALITY_FLAGS = ("--eval", "--random_init_points", "20000", "--instance_capacity", str(1 << 20))
+QUALITY_ITERS, QUALITY_WARMUP, QUALITY_TESTS = 3100, 800, (1000, 2000, 3100)
+QUALITY_RESET = 3000  # OptimizationConfig.opacity_reset_interval
+QUALITY_GATE = 33.0  # held-out test PSNR at QUALITY_ITERS, dB
+QUALITY_FULL_ITERS, QUALITY_FULL_WARMUP = 40_000, 3000
+QUALITY_FULL_TESTS = (1000, 2000, 3100, 5000, 7100, 9100, 12100, 15100, 18100, 20000, 24100,
+                      27100, 30100, 33100, 36100, QUALITY_FULL_ITERS)
 
 
 def log(*a):
@@ -714,7 +767,8 @@ def check_composite(torch, timer, splats_t, binning, grid_x, cfg, label="1080p f
         "blocks_per_sm": blocks,
         "evaluated_pairs": work.evaluated, "contributing_pairs": work.contributing,
         "ms": timer.ms(lambda: comp.composite_forward(*args, **kw), 30),
-        "plain_ms": timer.ms(lambda: comp.composite_forward_plain(*args, **kw), 2, warmup=1),
+        # One timed call: the plain loop is slow, and it has just run (warm).
+        "plain_ms": timer.ms(lambda: comp.composite_forward_plain(*args, **kw), 1, warmup=0),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -1059,7 +1113,7 @@ def check_backward(torch, timer, splats_t, binning, grid_x, cfg, label="800x800 
         "forward_final_t_max_abs_err": fwd_t_err,
         "forward_ms": timer.ms(lambda: comp.composite_forward(*tables, **kw), 30),
         "ms": timer.ms(lambda: comp.composite_backward(*args, **kw), 30),
-        "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 2, warmup=1),
+        "plain_ms": timer.ms(lambda: comp.composite_backward_plain(*args, **kw), 1, warmup=0),
         "library_ms": None,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "max_abs_err": err, "max_err_over_row_scale": rel, "bitwise_repeatable": True,
@@ -1505,9 +1559,9 @@ def scene_kernel_checks(torch, timer, frame, cfg, label, backward, upstream=None
     recs = []
     for i, (name, pos, x, K) in enumerate(fills):
         what = f"{label} call {i}"
-        recs.append(prefix_record(torch, timer, what, pos, x, K)[0]
-                    if name == "ordered_prefix_fill" else
-                    place_record(torch, timer, what, pos, x, K)[0])
+        recs.append({"name": name, **(prefix_record(torch, timer, what, pos, x, K)[0]
+                                      if name == "ordered_prefix_fill" else
+                                      place_record(torch, timer, what, pos, x, K)[0])})
     if backward:
         comp = check_backward(torch, timer, splats_t, binning, gx, cfg, label, upstream)
     else:
@@ -2829,6 +2883,365 @@ def mesh_phase(torch, root):
     return rec
 
 
+# -- phase 15: the dense oracle and the quality path ---------------------------
+
+
+def look_at_c2w(angle, radius=4.0):
+    """OpenGL camera-to-world of a camera on a circle in the x-z plane looking
+    at the origin (-z forward, y up), as a Blender scene's cameras."""
+    eye = np.array([radius * np.sin(angle), 0.0, radius * np.cos(angle)])
+    forward = -eye / np.linalg.norm(eye)
+    right = np.cross(forward, np.array([0.0, 1.0, 0.0]))
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0] = right
+    c2w[:3, 1] = np.cross(right, forward)
+    c2w[:3, 2] = -forward
+    c2w[:3, 3] = eye
+    return c2w
+
+
+def blender_scene(torch, root, n_views=6, n_test=2, size=64, n_blobs=12, animate=True, seed=0,
+                  device="cuda"):
+    """An animated D-NeRF / Blender scene of ``n_blobs`` coloured gaussian blobs
+    under ``root``: RGBA ``{split}/r_{i}.png`` and ``transforms_{split}.json``
+    (``camera_angle_x`` 0.8, a ``time`` per frame), cameras on a quarter orbit,
+    the blobs moving by (0.3 t, -0.2 t, 0), each view's ground truth drawn by
+    the dense oracle on ``device``.  The same draws, cameras and files as the
+    JAX package's test scene builder (tests/synthetic_scene.py)."""
+    from PIL import Image
+
+    from gs_deformable_tpu_torch.ops import projection
+    from gs_deformable_tpu_torch.ops import transforms as tf
+    from gs_deformable_tpu_torch.ops.rasterize_dense import rasterize_dense
+
+    rng = np.random.default_rng(seed)
+    fovx = 0.8
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+    centers = rng.uniform(-0.8, 0.8, (n_blobs, 3)).astype(np.float32)
+    colors = torch.tensor(rng.uniform(0.2, 1.0, (n_blobs, 3)), dtype=torch.float32,
+                          device=device)
+    opac = torch.tensor(rng.uniform(0.6, 0.95, n_blobs), dtype=torch.float32, device=device)
+    var = 0.12 ** 2
+    cov6 = torch.tensor([[var, 0, 0, var, 0, var]] * n_blobs, dtype=torch.float32, device=device)
+    projm = tf.projection_matrix(0.01, 100.0, fovx, fovx)
+    tan = float(np.tan(fovx / 2))
+    bg = torch.zeros(3, device=device)
+
+    def render_view(c2w_gl, t):
+        c2w = c2w_gl.copy()
+        c2w[:3, 1:3] *= -1  # to COLMAP's axes, as the reader does
+        w2c = np.linalg.inv(c2w)
+        view = tf.world_to_view(np.transpose(w2c[:3, :3]), w2c[:3, 3])
+        offs = np.array([0.3 * t, -0.2 * t, 0.0], np.float32) if animate else 0.0
+        pre = projection.preprocess(
+            torch.from_numpy(centers + offs).to(device), cov6, torch.from_numpy(view).to(device),
+            torch.from_numpy(view @ projm).to(device), width=size, height=size, tan_fovx=tan,
+            tan_fovy=tan)
+        out = rasterize_dense(pre.means2d_pix, pre.depths, pre.conics, opac, colors, pre.rect,
+                              pre.mask, bg, width=size, height=size)
+        return np.clip(out.color.cpu().numpy(), 0, 1)
+
+    for split, count in (("train", n_views), ("test", n_test)):
+        frames = []
+        for i in range(count):
+            t = i / max(count - 1, 1)
+            c2w = look_at_c2w(2 * np.pi * i / max(count, 1) * 0.25)
+            rgba = np.concatenate([render_view(c2w, t).transpose(1, 2, 0),
+                                   np.ones((size, size, 1))], -1)
+            Image.fromarray((rgba * 255).astype(np.uint8), "RGBA").save(
+                os.path.join(root, split, f"r_{i}.png"))
+            frames.append({"file_path": f"./{split}/r_{i}", "time": t,
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+    return root
+
+
+def dense_frame(torch):
+    """Screen-space arrays of a seeded frame of DENSE_N gaussians at
+    DENSE_SIZE x DENSE_SIZE on the card, through the port's preprocess
+    (3-sigma rects, as tests/test_rasterize.py's scenes): (means2d_pix,
+    depths, conics, opacities, colors, rect, mask, tiles_touched)."""
+    from gs_deformable_tpu_torch.ops import projection
+    from gs_deformable_tpu_torch.ops import transforms as tf
+
+    n, size = DENSE_N, DENSE_SIZE
+    rng = np.random.default_rng(DENSE_SEED)
+    fov = 0.9
+    view = np.eye(4, dtype=np.float32)
+    full = view @ tf.projection_matrix(0.01, 100.0, fov, fov)
+    means = np.stack([rng.uniform(-1.8, 1.8, n), rng.uniform(-1.8, 1.8, n),
+                      rng.uniform(2.5, 9.0, n)], -1).astype(np.float32)
+    means[: n // 8, 2] = 4.0  # exact depth ties: emission order decides
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    s = np.exp(rng.normal(size=(n, 3)) * 0.5 - 2.4).astype(np.float32)
+    opac = rng.uniform(0.2, 0.98, n).astype(np.float32)
+    colors = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+
+    pre = projection.preprocess(dev(means), tf.build_cov3d(dev(s), dev(q)), dev(view),
+                                dev(full), width=size, height=size,
+                                tan_fovx=float(np.tan(fov / 2)), tan_fovy=float(np.tan(fov / 2)))
+    return (pre.means2d_pix, pre.depths, pre.conics, dev(opac), dev(colors), pre.rect, pre.mask,
+            pre.tiles_touched)
+
+
+def dense_check(torch):
+    """Phase 15 (a): the tile path (``ops.rasterize.rasterize_arrays``: binning
+    with its ordered fills, the composite forward and, under autograd, the
+    backward) against the dense oracle on the same screen-space arrays, with
+    the tile cull off (n_contrib indexes the uncut tile lists) and on (the
+    trainer's default): image rtol 1e-4 / atol 2e-5, final_T rtol 1e-4 / atol
+    2e-6, n_contrib exact (cull off), and the gradients of a seeded
+    cotangent to means2d, conics, opacities and colours at rtol 5e-4 /
+    atol 2e-5 x the leaf's max |g| (tests/test_rasterize.py:64-98)."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.rasterize import rasterize_arrays
+    from gs_deformable_tpu_torch.ops.rasterize_dense import rasterize_dense
+
+    n, size = DENSE_N, DENSE_SIZE
+    m2d, depths, con, op, col, rect, mask, touched = dense_frame(torch)
+    rng = np.random.default_rng(DENSE_SEED + 1)
+    gc = torch.from_numpy(rng.normal(size=(3, size, size)).astype(np.float32)).cuda()
+    gt = torch.from_numpy(rng.normal(size=(size, size)).astype(np.float32)).cuda()
+    bg = torch.tensor([0.15, 0.3, 0.45], device="cuda")
+    names = ("means2d", "conics", "opacities", "colors")
+
+    def run(render):
+        leaves = [x.clone().requires_grad_(True) for x in (m2d, con, op, col)]
+        color, final_t, n_contrib = render(*leaves)
+        loss = (color * gc).sum() + (final_t * gt).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        return color.detach(), final_t.detach(), n_contrib, grads
+
+    def dense(m, c, o, k):
+        return rasterize_dense(m, depths, c, o, k, rect, mask, bg, width=size, height=size)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = run(dense)
+    torch.cuda.synchronize()
+    rec = {"gaussians": n, "size": size, "visible": int(mask.sum()),
+           "dense_s": time.perf_counter() - t0,
+           "dense_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "pixels_below_t_3e-4": int((ref[1] < 3e-4).sum())}
+    for cull in (False, True):
+        cfg = config.RasterizeConfig(instance_capacity=1 << 18, tile_cull=cull)
+        required = []
+
+        def tiled(m, c, o, k):
+            img, t, nc, req, _ = rasterize_arrays(m, depths, c, o, k, rect, touched, bg,
+                                                  width=size, height=size, cfg=cfg)
+            required.append(int(req))
+            return img, t, nc
+
+        got = run(tiled)
+        if required[0] > cfg.instance_capacity:
+            raise AssertionError(f"dense check: {required[0]} instances overflow the capacity")
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=2e-5,
+                                   msg=lambda m: f"tile vs dense image (cull {cull}): {m}")
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=2e-6,
+                                   msg=lambda m: f"tile vs dense final_T (cull {cull}): {m}")
+        nc_bad = int((got[2] != ref[2]).sum())
+        if not cull and nc_bad:
+            raise AssertionError(f"tile vs dense n_contrib differs at {nc_bad} pixels")
+        grad_err = {}
+        for name, a, b in zip(names, got[3], ref[3]):
+            scale = float(b.abs().max()) + 1e-8
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=2e-5 * scale,
+                                       msg=lambda m: f"tile vs dense d{name} (cull {cull}): {m}")
+            grad_err[name] = float((a - b).abs().max()) / scale
+        key = "cull" if cull else "no_cull"
+        rec[key] = {"instances": required[0],
+                    "rgb_max_abs_err": float((got[0] - ref[0]).abs().max()),
+                    "final_t_max_abs_err": float((got[1] - ref[1]).abs().max()),
+                    "n_contrib_pixels_differing": nc_bad,
+                    "grad_max_err_over_scale": grad_err}
+        log(f"  tile path (cull {'on' if cull else 'off'}, {required[0]} instances) vs dense: "
+            f"rgb {rec[key]['rgb_max_abs_err']:.3g}, final_T "
+            f"{rec[key]['final_t_max_abs_err']:.3g}, n_contrib differs at {nc_bad} pixels; "
+            f"gradients / scale " + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items()))
+    log(f"  dense oracle: {n} gaussians ({rec['visible']} visible) at {size}x{size}, forward "
+        f"and backward {rec['dense_s']:.2f} s, peak {rec['dense_peak_gib']:.2f} GiB; "
+        f"{rec['pixels_below_t_3e-4']} pixels end below T 3e-4, where first-hit termination "
+        f"decides")
+    return rec
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+TRAIN_REPORT = re.compile(r"\[ITER (\d+)\] Evaluating (\w+): L1 [\d.]+ PSNR ([\d.]+)")
+RENDER_REPORT = re.compile(r"\[(\w+)\] PSNR: ([\d.]+) SSIM: ([\d.]+)")
+
+
+def parse_reports(train_text, render_text):
+    """The PSNR the trainer prints at each test iteration, ``{set: [[iteration,
+    PSNR], ...]}``, and the render CLI's held-out metrics, ``{"psnr_<set>",
+    "ssim_<set>"}`` (the lines tools/quality_r04.py reads)."""
+    trajectory = {}
+    for it, name, psnr in TRAIN_REPORT.findall(train_text):
+        trajectory.setdefault(name, []).append([int(it), float(psnr)])
+    final = {}
+    for name, psnr, ssim in RENDER_REPORT.findall(render_text):
+        final[f"psnr_{name}"], final[f"ssim_{name}"] = float(psnr), float(ssim)
+    return trajectory, final
+
+
+def quality_drive(torch, src, model, iterations, warmup, tests, flags=QUALITY_FLAGS,
+                  device="cuda", frames=()):
+    """``train.main`` on the scene at ``src`` with ``flags``, ``--iterations``,
+    ``--warmup_iters`` and ``--test_iterations``, a save at the end, then
+    ``render_cli.main`` on the saved model; the PSNR parser on what both
+    print.  ``frames``: the step frames whose kernel inputs
+    ``recorded_frames`` keeps.  Returns the record (with the kernel launches
+    of each CLI run) and the recorder."""
+    from gs_deformable_tpu_torch import render_cli
+    from gs_deformable_tpu_torch import train as train_cli
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = ["-s", src, "-m", model, "--iterations", str(iterations), "--warmup_iters",
+            str(warmup), "--test_iterations", *map(str, tests), "--save_iterations",
+            str(iterations), "--device", device, "--disable_viewer", "--quiet", *flags]
+    log(f"  train.main({' '.join(argv)})")
+    timeline = []
+    train_out, render_out = Tee(sys.stdout), Tee(sys.stdout)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(train_out), recorded_frames(torch, frames) as rec:
+        train_cli.main(argv, timeline)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(render_out):
+        psnrs = render_cli.main(["-m", model, "--device", device, "--quiet"])
+    eval_s = time.perf_counter() - t0
+    render_launches = launch_counts()
+    trajectory, final = parse_reports(train_out.buf.getvalue(), render_out.buf.getvalue())
+    for name in ("test", "train"):
+        if [it for it, _ in trajectory.get(name, [])] != sorted(tests):
+            raise AssertionError(f"the trainer's {name} reports {trajectory.get(name)}, "
+                                 f"expected one at each of {sorted(tests)}")
+        if not {f"psnr_{name}", f"ssim_{name}"} <= set(final):
+            raise AssertionError(f"the render CLI printed no {name} PSNR/SSIM: {final}")
+        if abs(final[f"psnr_{name}"] - float(np.mean(psnrs[name]))) > 6e-4:
+            raise AssertionError(f"parsed {name} PSNR {final[f'psnr_{name}']}, the render CLI "
+                                 f"computed {np.mean(psnrs[name])}")
+    steps = [r for r in timeline if r["stage"] == "steps"]
+    loss = loss_by_iteration(timeline)  # every iteration's loss, finite
+    if sorted(loss) != list(range(1, iterations + 1)) or not np.isfinite(
+            list(loss.values())).all():
+        raise AssertionError("the trainer's losses miss iterations or are not finite")
+    windows = [[r["from"], r["to"], r["ms"] / (r["to"] - r["from"] + 1)] for r in steps]
+
+    def ms_per_step(lo, hi):
+        inside = [ms for a, b, ms in windows if lo <= a and b <= hi]
+        return float(np.median(inside)) if inside else None
+
+    def stage(name, *keys):
+        return [[r["iteration"], *(r[k] for k in keys)] for r in timeline if r["stage"] == name]
+
+    densify = stage("densify", "n_alive", "n_cloned", "n_split", "n_pruned", "n_dropped")
+    out = {"iterations": iterations, "warmup": warmup, "argv": argv,
+           "train_wall_s": train_s, "eval_wall_s": eval_s, "launches": train_launches,
+           "render_launches": render_launches,
+           "psnr_trajectory_test": trajectory["test"],
+           "psnr_trajectory_train": trajectory["train"], **final,
+           "densify": densify, "peak_alive": max([d[1] for d in densify], default=None),
+           "resets": [r["iteration"] for r in timeline if r["stage"] == "reset"],
+           "instance_growths": stage("instance_growth", "required", "capacity",
+                                     "aligned_slack"),
+           "capacity_growths": stage("capacity_growth", "capacity"),
+           "test_report_ms": stage("test_report", "ms"),
+           "ms_per_step": ms_per_step(1, iterations),
+           "ms_per_step_warmup": ms_per_step(11, warmup),
+           "ms_per_step_past_warmup": ms_per_step(warmup + 1, iterations),
+           "step_windows": windows}
+    log(f"  trained {iterations} iterations in {train_s:.1f} s, ms/step between drains: median "
+        f"{out['ms_per_step']}, in warmup {out['ms_per_step_warmup']}, past it "
+        f"{out['ms_per_step_past_warmup']}; render CLI {eval_s:.1f} s")
+    log(f"  PSNR trajectory test {trajectory['test']}  train {trajectory['train']}")
+    log("  render CLI: " + ", ".join(f"{k} {v}" for k, v in final.items()))
+    log(f"  gaussians after each densify [iteration, alive, cloned, split, pruned, dropped]: "
+        f"{densify}; peak {out['peak_alive']}; resets at {out['resets']}")
+    log(f"  instance-capacity growths [iteration, required, capacity, slack]: "
+        f"{out['instance_growths']}; capacity growths {out['capacity_growths']}")
+    return out, rec
+
+
+def quality_phase(torch, timer, root, iters=QUALITY_ITERS, warmup=QUALITY_WARMUP,
+                  tests=QUALITY_TESTS, checks=True):
+    """Phase 15: (a) the tile path against the dense oracle, (b) the quality
+    scene built on the card with the dense oracle, (c) the trainer and render
+    CLIs at the recorded TPU run's regime to 3,100 iterations, gated on the
+    held-out PSNR there, and rows 1, 4, 7 and 8 held against their plain
+    versions on the step after the opacity reset.  With ``checks`` off
+    (``--quality_full``) only (b) and the run, with no gate."""
+    from gs_deformable_tpu_torch import config
+
+    rec = {"card": card_line()}
+    log(f"  {rec['card']}")
+    if checks:
+        log("  (a) the tile path against the dense oracle")
+        rec["dense"] = dense_check(torch)
+    src, model = os.path.join(root, "quality_scene"), os.path.join(root, "quality_model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blender_scene(torch, src, n_views=QUALITY_TRAIN, n_test=QUALITY_TEST, size=QUALITY_SIZE,
+                  n_blobs=QUALITY_BLOBS, animate=True, seed=QUALITY_SEED)
+    rec["scene_build_s"] = time.perf_counter() - t0
+    log(f"  (b) the scene ({QUALITY_TRAIN} + {QUALITY_TEST} views of {QUALITY_SIZE}x"
+        f"{QUALITY_SIZE}, {QUALITY_BLOBS} blobs, seed {QUALITY_SEED}) drawn by the dense oracle "
+        f"in {rec['scene_build_s']:.2f} s")
+    # Iteration i's step is composite-forward call i - 1, after the report
+    # views of each test iteration before it (20 test and 5 train at most).
+    report_views = min(QUALITY_TEST, 20) + min(QUALITY_TRAIN, 5)
+    after_reset = QUALITY_RESET + 1
+    frame = after_reset - 1 + report_views * sum(t < after_reset for t in tests)
+    run, kept = quality_drive(torch, src, model, iters, warmup, tests,
+                              frames=(frame,) if checks else ())
+    rec["run"], counts = run, run["launches"]
+    for what, got, forward, backward in (
+            ("trainer", counts, iters + report_views * len(tests), iters),
+            ("render CLI", run["render_launches"], QUALITY_TRAIN + QUALITY_TEST, 0)):
+        want = {"composite_forward": forward, "composite_backward": backward,
+                "ordered_prefix_fill": 2 * forward, "ordered_place_i32": forward}
+        if got != want:
+            raise AssertionError(f"{what} launches {got}, expected {want}")
+    if not checks:
+        return rec
+    if QUALITY_RESET not in run["resets"]:
+        raise AssertionError(f"no opacity reset at {QUALITY_RESET}: {run['resets']}")
+    rec["kernel_checks"] = recorded_checks(torch, timer, kept, frame, counts, config.Config(),
+                                           f"quality step {after_reset}", backward=True)
+    at = dict(run["psnr_trajectory_test"])[iters]
+    rec["gate"] = {"test_psnr": at, "at": iters, "min": QUALITY_GATE}
+    if not at >= QUALITY_GATE:
+        raise AssertionError(f"held-out test PSNR {at} at {iters} under the gate {QUALITY_GATE}")
+    log(f"  (c) held-out test PSNR at {iters}: {at} >= {QUALITY_GATE}")
+    return rec
+
+
 def _cli_template(torch, training, cfg, src, model, it):
     """A train state shaped as the trainer's checkpoint at ``it``: its
     capacity read from the file."""
@@ -2987,17 +3400,18 @@ def main():
               f"torch.distributed.run")
         log(f"  {card}")
         mesh_rec = mesh_phase(torch, root)
+        phase(f"phase 15: the dense oracle and the quality path: (a) the tile path vs the dense "
+              f"oracle, (b) a {QUALITY_SIZE}x{QUALITY_SIZE} scene drawn by it, (c) the trainer "
+              f"and render CLIs to {QUALITY_ITERS} iterations, warmup {QUALITY_WARMUP}")
+        quality_rec = quality_phase(torch, timer, root)
     log("  phase 12 (d): a reduced se3 + gate step, card vs CPU:")
     cli_rec["reduced_step"] = reduced_step_check(torch, deform_mode="se3", use_opacity_mask=True)
-
-    def total(key, recs):
-        return sum(r[key] for r in recs)
 
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
     # "launches_render": the render path of phase 3; "launches_cli": the
-    # trainer CLI's run of phase 12.
+    # trainer CLI's run of phase 12; "launches_quality": phase 15's trainer run.
     kernels = [
         {"name": "composite_forward", "route": "cuda",
          "source": "gs_deformable_tpu_torch/csrc/composite_fwd.cu",
@@ -3053,6 +3467,33 @@ def main():
                 | ({"max_err_over_row_scale": x["band_frame"]["backward_max_err_over_row_scale"]}
                    if entry["name"] == "composite_backward" else {"bitwise_equal_plain": True})
                 for x in mesh_ranks]
+    # Phase 15: each kernel of the step on the recorded step after the
+    # opacity reset, its launches in the quality run, and the tile path
+    # (these four kernels) against the dense oracle.
+    qc, dense = quality_rec["kernel_checks"], quality_rec["dense"]
+    comp = qc["composite"]
+    quality_step = {
+        "composite_forward": {"shape": comp["shape"], "instances": comp["instances"],
+                              "ms": comp["forward_ms"], "bitwise_equal_plain": True},
+        "composite_backward": {k: comp[k] for k in (
+            "shape", "instances", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_err_over_row_scale")},
+        **{name: [{k: r[k] for k in ("n", "K", "ms", "bound_ms", "max_abs_err")}
+                  for r in qc["fills"] if r["name"] == name]
+           for name in ("ordered_prefix_fill", "ordered_place_i32")}}
+    sides = [dense["no_cull"], dense["cull"]]
+    vs_dense = {"gaussians": dense["gaussians"], "size": dense["size"],
+                "instances": dense["no_cull"]["instances"],
+                "rgb_max_abs_err": max(x["rgb_max_abs_err"] for x in sides),
+                "final_t_max_abs_err": max(x["final_t_max_abs_err"] for x in sides),
+                "n_contrib_pixels_differing": dense["no_cull"]["n_contrib_pixels_differing"],
+                "grad_max_err_over_scale": max(max(x["grad_max_err_over_scale"].values())
+                                               for x in sides)}
+    for entry in kernels:
+        if entry["name"] in STEP_LAUNCHES:
+            entry["launches_quality"] = quality_rec["run"]["launches"][entry["name"]]
+            entry["quality_step"] = quality_step[entry["name"]]
+            entry["vs_dense_oracle"] = vs_dense
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "blocks_per_sm": occupancy, "frames": FRAMES, "frame_ms": frame_ms,
@@ -3061,6 +3502,7 @@ def main():
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
+        "quality": quality_rec,
         "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }
@@ -3076,7 +3518,48 @@ def main():
     return 0
 
 
+def quality_full():
+    """``--quality_full``: phases 1, 2 and 15 (b) and the reference regime of
+    tools/quality_r05.py through the trainer and render CLIs (40,000
+    iterations, warmup 3,000, its test milestones).  The record goes to
+    chiprun_out/quality_full.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
+              file=sys.stderr)
+        return 1
+    from gs_deformable_tpu_torch import _build
+
+    t_start = time.time()
+    log(card_line())
+    log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
+    _build.build_all()
+    log(f"phase 15, the reference regime: {QUALITY_FULL_ITERS} iterations, warmup "
+        f"{QUALITY_FULL_WARMUP}, test iterations {QUALITY_FULL_TESTS}  "
+        f"[{time.time() - t_start:.1f} s]")
+    with tempfile.TemporaryDirectory() as root:
+        rec = quality_phase(torch, None, root, QUALITY_FULL_ITERS, QUALITY_FULL_WARMUP,
+                            QUALITY_FULL_TESTS, checks=False)
+    rec["seconds"] = time.time() - t_start
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "quality_full.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    run = rec["run"]
+    print(json.dumps({k: run[k] for k in (
+        "iterations", "warmup", "train_wall_s", "eval_wall_s", "psnr_trajectory_test",
+        "psnr_trajectory_train", "psnr_test", "ssim_test", "psnr_train", "ssim_train",
+        "peak_alive", "ms_per_step_past_warmup")} | {"card": rec["card"]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--quality_full"]:
+        sys.exit(quality_full())
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--cli-child"]:

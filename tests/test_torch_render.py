@@ -11,6 +11,7 @@
   to the CPU quietly; CPU tensors never launch a kernel.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -159,6 +160,7 @@ def test_jax_saved_model_loads_in_port(tmp_path):
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib, gs_deformable_tpu_torch as p\n"
+        "import chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -169,6 +171,14 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    # chip_smoke.py imports the port inside its functions: none of its
+    # imports, at any depth, may name jax or the JAX package.
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "gs_deformable_tpu_torch" in {n.split(".")[0] for n in names}
+    assert not [n for n in names if n.split(".")[0] in ("jax", "gs_deformable_tpu")], names
 
 
 def test_no_quiet_cpu_fallback(monkeypatch):
