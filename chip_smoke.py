@@ -222,6 +222,27 @@ Phases (any failure raises and the script exits non-zero):
    the instance-capacity growths, ms/step between counter drains, the
    train and eval wall times and the card's name and power limit.
 
+16. CUDA-graph replay: each kernel captured alone into a
+   ``torch.cuda.CUDAGraph`` on static input buffers, after one eager call:
+   the prefix fill at phase 4's two render shapes (C = 4 over the
+   capacity, C = 2 over the tiles; two graphs of each, captured one after
+   the other on torch's default capture stream and replayed in turns) and
+   the place at the render Kp, fed 21 seeded position sets of one length
+   whose drops (negative rows and rows past K) move from set to set; the
+   composite forward and backward at phase 7's 800x800 train shapes, fed
+   the train frames at three times.  20 replays of each graph, new inputs
+   copied in before each, and after each one eager call of the same
+   kernel on the same stream: every replay and call of the fills and the
+   forward bitwise its plain version, of the backward bitwise the eager
+   kernel's first result and within phase 7's bar of the plain version.
+   Prints the replays and eager calls checked, whether any element
+   differed, and ms per replay (the captured zeroing of the prefix fill's
+   status buffer included) against ms per eager call of each fill, with
+   the card's name and power limit.  Then ``ops.projection.mark_visible``
+   on phase 3's scene under three cameras (phase 3's, one inside the cloud,
+   one turned in it): bitwise the near cull of the render path's
+   preprocess (its depths > 0.2), and every gaussian it keeps visible.
+
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
 PERF.md section 5).
@@ -3255,6 +3276,244 @@ def _cli_template(torch, training, cfg, src, model, it):
     return training.init_train_state(state, net, 0, latent)
 
 
+# -- phase 16: CUDA-graph replay -----------------------------------------------
+
+GRAPH_REPLAYS = 20  # replays of each graph
+GRAPH_FILL_SETS = 21  # input sets of each fill: odd, so two graphs in turns meet them all
+GRAPH_TIMES = (0.5, 0.2, 0.8)  # the train frames fed to the composite graphs (phase 7's first)
+
+
+def moved_drops(K, n, seed):
+    """n sorted unique int32 positions for an output of K, seeded as
+    tests/fill_cases.py's ``moved_drops``: a seeded number of negative rows,
+    random positions in [0, K), then rows >= K, so the drops at both ends
+    move from set to set while n stays."""
+    rng = np.random.default_rng(seed)
+    lead, tail = (int(x) for x in rng.integers(0, n // 8 + 1, 2))
+    mid = min(n - lead - tail, K)
+    tail = n - lead - mid
+    p = np.sort(rng.choice(K, mid, replace=False))
+    return np.concatenate([np.arange(-lead, 0), p, K + np.arange(tail)]).astype(np.int32)
+
+
+def fill_values(n, C, seed):
+    """(n, C) int32 in [-2^20, 2^20), seeded as tests/fill_cases.py's ``values``."""
+    return np.random.default_rng(seed + 1).integers(-(1 << 20), 1 << 20, (n, C)).astype(np.int32)
+
+
+def capture(torch, fn):
+    """One eager call of ``fn`` (it warms the kernel), then one call captured
+    into a CUDA graph on torch's default capture stream: (graph, the output
+    tensor that every replay rewrites)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def replay_check(torch, graphs, buffers, sets, eager, off):
+    """Replay ``graphs`` in turns, GRAPH_REPLAYS times each.  Before each
+    replay the next input set (cyclically) is copied into that graph's
+    static buffers; after it, one eager call of the same kernel on the same
+    inputs and stream.  ``off(got, i)`` counts the elements of a result on
+    set i that break its bar.  Returns (replays, elements off); there are as
+    many eager calls as replays."""
+    n = GRAPH_REPLAYS * len(graphs)
+    bad = 0
+    for r in range(n):
+        (graph, out), bufs, i = graphs[r % len(graphs)], buffers[r % len(graphs)], r % len(sets)
+        for buf, x in zip(bufs, sets[i]):
+            buf.copy_(x)
+        graph.replay()
+        now = eager(*bufs)
+        torch.cuda.synchronize()
+        bad += off(out, i) + off(now, i)
+    return n, bad
+
+
+def graph_fill(torch, timer, call, plain, sets, K, n_graphs):
+    """``call(pos, values, K)`` captured into ``n_graphs`` graphs and replayed
+    on ``sets``: every replay and eager call bitwise ``plain``; ms per replay
+    (for the prefix fill, the captured zeroing of its status buffer
+    included) against ms per eager call."""
+    refs = {}
+
+    def off(got, i):
+        if i not in refs:
+            refs[i] = plain(*sets[i], K)
+        return int((got != refs[i]).sum())
+
+    buffers = [tuple(x.clone() for x in sets[k]) for k in range(n_graphs)]
+    graphs = [capture(torch, lambda b=b: call(*b, K)) for b in buffers]
+    replays, bad = replay_check(torch, graphs, buffers, sets, lambda *b: call(*b, K), off)
+    return {"name": call.__name__, "K": K, "graphs": n_graphs, "replays": replays,
+            "eager_calls": replays, "elements_off": bad,
+            "replay_ms": timer.ms(graphs[0][0].replay, 50),
+            "eager_ms": timer.ms(lambda: call(*buffers[0], K), 50)}
+
+
+def graph_fills(torch, timer, Kp):
+    """The prefix fill at phase 4's two render shapes, two graphs each
+    captured one after the other, and the place, one graph, each fed
+    GRAPH_FILL_SETS position sets whose drops move."""
+    from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
+
+    recs = []
+    for label, n, K, C in (("front fills", CAPACITY, INSTANCE_CAPACITY, 4),
+                           ("relayout fills", NTILES, INSTANCE_CAPACITY, 2),
+                           ("relayout place", INSTANCE_CAPACITY, Kp, 0)):
+        sets = [(torch.from_numpy(moved_drops(K, n, s)).cuda(),
+                 torch.from_numpy(fill_values(n, C, s) if C else fill_values(n, 1, s)[:, 0]).cuda())
+                for s in range(GRAPH_FILL_SETS)]
+        if C:
+            rec = graph_fill(torch, timer, of.ordered_prefix_fill, of.prefix_fill_plain, sets,
+                             K, 2)
+        else:
+            rec = graph_fill(torch, timer, of.ordered_place_i32, of.place_plain, sets, K, 1)
+        rec.update(shape=label, n=n, C=C or None)
+        log(f"  {rec['name']} {label} (n={n} K={K}{f' C={C}' if C else ''}): {rec['graphs']} "
+            f"graph(s), {rec['replays']} replays and {rec['eager_calls']} eager calls checked "
+            f"bitwise, {rec['elements_off']} elements off; {rec['replay_ms']:.4f} ms a replay, "
+            f"{rec['eager_ms']:.4f} ms an eager call")
+        recs.append(rec)
+    return recs
+
+
+def rows_off(torch, got, ref):
+    """Elements of (16, Kp) gradient rows outside phase 7's bar: rows 0-8 at
+    rtol 5e-4 / atol 2e-5 x the row's max |ref|, rows 9-15 exactly 0."""
+    g, r = got[:GRAD_FIELDS], ref[:GRAD_FIELDS]
+    tol = 2e-5 * (r.abs().amax(dim=1, keepdim=True) + 1e-30) + 5e-4 * r.abs()
+    return int((~((g - r).abs() <= tol)).sum()) + int(got[GRAD_FIELDS:].ne(0).sum())
+
+
+def graph_composite(torch, device="cuda"):
+    """The composite forward and backward at phase 7's 800x800 train shapes,
+    fed the train frames at GRAPH_TIMES in turns: each forward replay and
+    eager call bitwise its plain version, each backward bitwise the eager
+    kernel's first result on that frame and within phase 7's bar of the
+    plain version."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.ops.kernels import composite as comp
+
+    cfg = train_cfg(config, packed=False)
+    ts, _, _, _, (tanx, tany) = train_setup(torch, cfg, N_GAUSS, CAPACITY, TRAIN_W, TRAIN_H,
+                                            device)
+    fwd_sets, bwd_sets = [], []
+    for t in GRAPH_TIMES:
+        cam = camera(TRAIN_W, TRAIN_H, t, device)[0]
+        splats_t, binning, gx = frame_tiles(torch, ts.gaussians, ts.net, cam, tanx, tany, cfg,
+                                            TRAIN_W, TRAIN_H, TRAIN_ITERATION)
+        if int(binning.required) > TRAIN_ICAP:
+            raise AssertionError(f"graph frame at time {t} overflows: {int(binning.required)}")
+        fwd_sets.append((splats_t, binning.tile_chunk_start, binning.tile_count))
+    del ts
+    kw = dict(grid_x=gx, **composite_kw(cfg))
+    fwd_ref = [comp.composite_forward_plain(*x, **kw) for x in fwd_sets]
+    for i, (x, out) in enumerate(zip(fwd_sets, fwd_ref)):
+        grad = torch.zeros_like(out)
+        grad[:, 0:4] = torch.from_numpy(np.random.default_rng(7 + i).normal(
+            size=(out.shape[0], 4, 256)).astype(np.float32)).to(device)
+        bwd_sets.append((*x, out, grad))
+    bwd_ref = [comp.composite_backward_plain(*x, **kw) for x in bwd_sets]
+    bwd_first = [comp.composite_backward(*x, **kw) for x in bwd_sets]
+    torch.cuda.synchronize()
+    recs = []
+    for name, sets, call, off in (
+            ("composite_forward", fwd_sets, comp.composite_forward,
+             lambda got, i: int((got.view(torch.int32) != fwd_ref[i].view(torch.int32)).sum())),
+            ("composite_backward", bwd_sets, comp.composite_backward,
+             lambda got, i: (int((got.view(torch.int32) != bwd_first[i].view(torch.int32)).sum())
+                             + rows_off(torch, got, bwd_ref[i])))):
+        buffers = [tuple(x.clone() for x in sets[0])]
+        graphs = [capture(torch, lambda b=buffers[0], call=call: call(*b, **kw))]
+        replays, bad = replay_check(torch, graphs, buffers, sets,
+                                    lambda *b, call=call: call(*b, **kw), off)
+        recs.append({"name": name, "shape": "800x800 train frames", "frames": len(sets),
+                     "Kp": sets[0][0].shape[1], "replays": replays, "eager_calls": replays,
+                     "elements_off": bad})
+        log(f"  {name} (800x800 train frames at times {GRAPH_TIMES}, Kp "
+            f"{sets[0][0].shape[1]}): {replays} replays and {replays} eager calls checked "
+            f"({'bitwise' if name == 'composite_forward' else 'bitwise the eager kernel, phase 7 bar'}"
+            f"), {bad} elements off")
+        del graphs
+    return recs
+
+
+def mark_visible_check(torch, device="cuda"):
+    """``ops.projection.mark_visible`` on phase 3's 100k-gaussian scene, its
+    deformed means at phase 3's first frame time, under three cameras: phase
+    3's, one moved 6 units into the cloud and one turned 0.7 rad at its
+    middle: bitwise the near cull of the preprocess that the render path
+    runs (its depths > 0.2), and every gaussian preprocess keeps visible."""
+    from gs_deformable_tpu_torch import config, renderer
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.ops import projection, rasterize
+    from gs_deformable_tpu_torch.ops import transforms as tf
+    from gs_deformable_tpu_torch.renderer import CameraArrays
+
+    cfg = render_cfg(config)
+    state = scene(torch, N_GAUSS, CAPACITY, device=device)
+    net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device=device)
+    _, tanx, tany = camera(W, H, 0.1, device)
+    proj = tf.projection_matrix(0.01, 100.0, 2 * np.arctan(tanx), 2 * np.arctan(tany))
+    c, s = np.cos(0.7), np.sin(0.7)
+    views = {"phase 3's": np.eye(4, dtype=np.float32),
+             "moved into the cloud": np.eye(4, dtype=np.float32),
+             "turned in the cloud": np.array([[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0],
+                                              [0, 0, 0, 1]], np.float32)}
+    views["moved into the cloud"][3, 2] = -6.0
+    views["turned in the cloud"][3] = [-7.0 * s, 0.0, -7.0 * c, 1.0]  # centre (0, 0, 7)
+    recs = []
+    for label, view in views.items():
+        centre = np.linalg.inv(view.astype(np.float64))[3, :3].astype(np.float32)
+        cam = CameraArrays.from_numpy(view, view @ proj, centre, 0.1, device=device)
+        with torch.no_grad():
+            m, sc, r, o, shs, _ = renderer.deformed_attributes(state, net, cam.time, ITERATION,
+                                                               cfg)
+            ss = rasterize.screen_space(m, sc, r, o, shs, viewmatrix=cam.world_view,
+                                        projmatrix=cam.full_proj, campos=cam.camera_center,
+                                        width=W, height=H, tan_fovx=tanx, tan_fovy=tany,
+                                        sh_degree=3, alive=state.alive, cfg=cfg.raster)
+        vis = projection.mark_visible(m, cam.world_view, cam.full_proj)
+        near = ss.pre.depths > projection.NEAR_Z
+        alive = state.alive
+        rec = {"camera": label, "visible": int((vis & alive).sum()), "alive": int(alive.sum()),
+               "kept_by_preprocess": int(ss.pre.mask.sum()),
+               "differ_from_near_cull": int((vis != near).sum()),
+               "kept_but_not_visible": int((ss.pre.mask & ~vis).sum())}
+        log(f"  mark_visible, camera {label}: {rec['visible']} of {rec['alive']} gaussians "
+            f"visible, preprocess keeps {rec['kept_by_preprocess']}; "
+            f"{rec['differ_from_near_cull']} differ from its near cull")
+        if rec["differ_from_near_cull"] or rec["kept_but_not_visible"]:
+            raise AssertionError(f"mark_visible disagrees with preprocess: {rec}")
+        recs.append(rec)
+    if not 0 < min(r["visible"] for r in recs[1:]) < N_GAUSS:
+        raise AssertionError(f"the cameras in the cloud should see part of it: {recs}")
+    return recs
+
+
+def graph_phase(torch, timer, card, Kp):
+    """Phase 16: each of the four kernels captured into CUDA graphs and
+    replayed on new inputs, with eager calls between the replays; then
+    mark_visible against the render path's near cull."""
+    fills = graph_fills(torch, timer, Kp)
+    comp = graph_composite(torch)
+    visible = mark_visible_check(torch)
+    recs = fills + comp
+    bad = sum(r["elements_off"] for r in recs)
+    times = "; ".join(f"{r['name']} {r['shape']} {r['replay_ms']:.4f} ms a replay vs "
+                      f"{r['eager_ms']:.4f} eager" for r in fills)
+    log(f"  graph replay: {sum(r['replays'] for r in recs)} replays and "
+        f"{sum(r['eager_calls'] for r in recs)} eager calls checked; any element differed: "
+        f"{bad > 0}; {times} ({card})")
+    if bad:
+        raise AssertionError(f"CUDA-graph replays or eager calls broke their bars: {recs}")
+    return {"kernels": recs, "mark_visible": visible}
+
+
 def main():
     import torch
 
@@ -3407,6 +3666,12 @@ def main():
     log("  phase 12 (d): a reduced se3 + gate step, card vs CPU:")
     cli_rec["reduced_step"] = reduced_step_check(torch, deform_mode="se3", use_opacity_mask=True)
 
+    phase("phase 16: the four kernels captured into CUDA graphs and replayed on new inputs, "
+          "eager calls between; mark_visible against the render path's near cull")
+    graph_rec = graph_phase(torch, timer, card, Kp)
+    graph_rec["seconds"] = time.time() - t_start - phase_s["phase 16"]
+    log(f"  phase 16 took {graph_rec['seconds']:.1f} s")
+
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
@@ -3494,6 +3759,11 @@ def main():
             entry["launches_quality"] = quality_rec["run"]["launches"][entry["name"]]
             entry["quality_step"] = quality_step[entry["name"]]
             entry["vs_dense_oracle"] = vs_dense
+    # Phase 16: each kernel's CUDA-graph replays (a prefix-fill row per shape).
+    for entry in kernels:
+        replays = [r for r in graph_rec["kernels"] if r["name"] == entry["name"]]
+        if replays:
+            entry["graph_replay"] = replays
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "blocks_per_sm": occupancy, "frames": FRAMES, "frame_ms": frame_ms,
@@ -3502,7 +3772,7 @@ def main():
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
-        "quality": quality_rec,
+        "quality": quality_rec, "graph": graph_rec,
         "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }

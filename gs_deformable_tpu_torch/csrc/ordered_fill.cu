@@ -56,24 +56,41 @@
 // with ticket 0 waits for nobody, and by induction every block finishes,
 // whatever order the hardware schedules blocks in.
 //
-// State between launches.  The status words live in one small buffer that
-// the wrapper keeps per device and stream: one ticket counter, then
-// MAX_C aggregate words and MAX_C inclusive words per block.  Each status
-// word is 64 bits, the launch's epoch in the high half and the int32 value
-// in the low half, written and read whole (relaxed, GPU scope), so a word
-// is valid for a launch exactly when it carries that launch's epoch.  The
-// wrapper passes a new epoch to every launch (never 0, the value of a
-// freshly zeroed buffer), so no launch needs the words cleared.  That holds
-// only while every launch is issued from the host: a CUDA graph would
-// replay one epoch, and a block would take a predecessor's words from the
-// replay before as this launch's, a wrong carry with no error.  So the call
-// must not be captured into a graph, and the wrapper raises if it is.  The block
-// that takes the launch's last ticket resets the counter to 0: every other
-// ticket of the launch is taken by then, and the next launch on the stream
-// starts after this one ends.  A launch refused at the call never touches
-// the buffer; the next one gets a new epoch and finds the counter at 0.  A
-// launch that faults on the card leaves the CUDA context unusable, and with
-// it every later launch, so no state survives a fault to be read.
+// State between launches.  The status words live in one small buffer: one
+// ticket counter, then MAX_C aggregate and MAX_C inclusive words per block.
+// Each status word is 64 bits, the launch's epoch in the high half and the
+// int32 value in the low half, written and read whole (relaxed, GPU scope),
+// so a word is valid for a launch exactly when it carries that launch's
+// epoch.  The block that takes the launch's last ticket resets the counter
+// to 0: every other ticket of the launch is taken by then.  Where the
+// buffer comes from decides which epochs it can hold, and the wrapper keeps
+// every call a pure function of (pos, delta, K) in both of its cases:
+//
+// - A call issued from the host takes the buffer the wrapper keeps per
+//   device and stream and a new epoch (never 0, the value of a freshly
+//   zeroed buffer), so no launch needs the words cleared: the launch before
+//   it on the stream has ended, and its words carry an older epoch.  Before
+//   the epoch would wrap, the wrapper replaces the buffer by a zeroed one.
+// - A call captured into a CUDA graph takes a buffer of its own, zeroed by
+//   torch.zeros inside the capture, and epoch 1.  A graph replays the epoch
+//   it was captured with, and it replays the memset node too, so every
+//   replay starts from words that carry no epoch at all.  Two captured calls
+//   never share a buffer, so graphs replayed on two streams at once cannot
+//   read each other's words, and an eager call between two replays on the
+//   same stream uses the other buffer.  The price is one memset of
+//   ordered_fill_state_words(K) * 8 bytes per captured call (22 KB at the
+//   1080p render's 144 blocks).
+//
+// Of the two designs that keep a replay pure, this one leaves the kernel as
+// it was.  The other, an epoch word kept on the card and advanced by the
+// launch's last block, would change the eager kernel and its time, needs a
+// fence between each block's epoch read and its ticket, and still shares
+// one buffer between graphs captured on one stream.
+//
+// A launch refused at the call never touches the buffer; the next one
+// finds the counter at 0.  A launch that faults on the card leaves the
+// CUDA context unusable, and with it every later launch, so no state
+// survives a fault to be read.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -451,8 +468,9 @@ int launch_prefix(const int32_t* pos, const int32_t* delta, int n, int K, int nb
 extern "C" {
 
 // 64-bit words of ordered_prefix_fill's state buffer for K output positions
-// (zeroed once, when the buffer is allocated): the ticket, then MAX_C
-// aggregate and MAX_C inclusive status words per block.
+// (zeroed when the buffer is allocated, and by every replay of a captured
+// call): the ticket, then MAX_C aggregate and MAX_C inclusive status words
+// per block.
 int ordered_fill_state_words(int K) {
   return STATUS_OFFSET + 2 * MAX_C * ((K + BLOCK - 1) / BLOCK);
 }

@@ -3,7 +3,9 @@
 Every wrapper takes its plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor.  Each keeps a launch counter, a plain
 integer that rises by one per kernel launch and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  A call captured into a
+CUDA graph counts once, when it is captured; the graph's replays launch the
+kernel without Python and are not counted.
 """
 
 from __future__ import annotations

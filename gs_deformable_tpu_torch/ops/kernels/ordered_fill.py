@@ -10,11 +10,12 @@ The port of ``gs_deformable_tpu/ops/pallas/ordered_fill.py`` (kernel
 
 Both carry int32 end to end, so they are exact: the JAX version's fp32
 lanes hold the same integers (every value there is below 2^24).  Each call
-on the card is one kernel launch.  The prefix fill's launches share a small
-status buffer per device and stream, kept here with the epoch of its last
-launch (see the head note of the CUDA source).  The epoch is a kernel
-argument that a CUDA graph would freeze, so the prefix fill refuses to be
-captured.
+on the card is one kernel launch, and each is a pure function of its
+inputs, also when it is captured into a CUDA graph and replayed (see the
+head note of the CUDA source): a call issued from the host takes the small
+status buffer kept here per device and stream, with a new epoch; a call
+under capture takes a buffer of its own, zeroed inside the capture, and
+epoch 1.
 """
 
 from __future__ import annotations
@@ -42,8 +43,18 @@ def _lib():
 
 
 def _status_for(lib, device: torch.device, stream: int, K: int):
-    """The status buffer for a launch at K on ``stream`` and the launch's epoch."""
+    """The status buffer for a launch at K on ``stream`` and the launch's epoch.
+
+    Under CUDA-graph capture: a fresh zeroed buffer and epoch 1.  The capture
+    records the zeroing as a node ahead of the kernel, so every replay starts
+    from words that carry no epoch, and no two captured calls share words.
+    Otherwise the buffer of (device, stream) and its next epoch; after epoch
+    2^32 - 1 the buffer is replaced by a zeroed one, so no word of an earlier
+    launch can carry the epoch of a later one.
+    """
     words = lib.ordered_fill_state_words(K)
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((words,), dtype=torch.int64, device=device), 1
     st = _status.get((device.index, stream))
     if st is None or st[0].numel() < words or st[1] == _LAST_EPOCH:
         st = [torch.zeros((words,), dtype=torch.int64, device=device), 0]
@@ -84,9 +95,6 @@ def ordered_prefix_fill(pos: torch.Tensor, delta: torch.Tensor, K: int) -> torch
         return prefix_fill_plain(pos, delta, K)
     if pos.device.type != "cuda" or delta.device != pos.device:
         raise ValueError(f"pos/delta on {pos.device}/{delta.device}")
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("ordered_prefix_fill cannot be captured into a CUDA graph: each "
-                           "launch needs a new epoch, which a replay would repeat")
     lib = _lib()
     pos = pos.contiguous()
     delta = delta.contiguous()

@@ -39,6 +39,27 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
+def _near_test(means3d: torch.Tensor, viewmatrix: torch.Tensor):
+    """(view-space z, z > NEAR_Z): the near cull that ``preprocess`` and
+    ``mark_visible`` share, so the two cannot disagree."""
+    p_view_z = means3d @ viewmatrix[:3, 2] + viewmatrix[3, 2]
+    return p_view_z, p_view_z > NEAR_Z
+
+
+def mark_visible(means3d: torch.Tensor, viewmatrix: torch.Tensor,
+                 projmatrix: torch.Tensor) -> torch.Tensor:
+    """Standalone visibility test, (P, 3) -> (P,) bool, on the inputs' device.
+
+    The rasterizer's third public entry point (``markVisible``): view z >
+    0.2, the near test of ``preprocess``'s cull (the reference's NDC bound
+    checks are dead code, so visibility reduces to it).  ``projmatrix`` is
+    taken for the reference's signature and unused.
+    """
+    del projmatrix
+    with torch.no_grad():
+        return _near_test(means3d, viewmatrix)[1]
+
+
 def tile_ellipse_mask(means2d_pix, conics, opacities, rect, tiles_touched, *,
                       tile_x: int, tile_y: int, max_bits: int = 16,
                       slack: float = 0.02):
@@ -137,8 +158,7 @@ def preprocess(means3d, cov3d, viewmatrix, projmatrix, *, width: int, height: in
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
 
-    p_view_z = means3d @ viewmatrix[:3, 2] + viewmatrix[3, 2]
-    in_front = p_view_z > NEAR_Z
+    p_view_z, in_front = _near_test(means3d, viewmatrix)
     p_hom = means3d @ projmatrix[:3, :] + projmatrix[3, :]
     p_w = 1.0 / (p_hom[:, 3] + W_EPS)
     ndc = p_hom[:, :2] * p_w[:, None]

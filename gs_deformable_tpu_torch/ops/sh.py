@@ -16,6 +16,10 @@ C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
       0.47308734787878004, -1.7701307697799304, 0.6258357354491761)
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """sh (..., C, (deg+1)^2), dirs (..., 3) unit -> (..., C); no offset, no clamp."""
     if not 0 <= deg <= 4:

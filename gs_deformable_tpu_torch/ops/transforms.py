@@ -40,6 +40,14 @@ def build_cov3d(scaling: torch.Tensor, rotation: torch.Tensor,
         [sig(0, 0), sig(0, 1), sig(0, 2), sig(1, 1), sig(1, 2), sig(2, 2)], dim=-1)
 
 
+def unpack_cov3d(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) packed upper triangle, as ``build_cov3d`` packs it -> (..., 3, 3)."""
+    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray, translate: np.ndarray = np.zeros(3),
                   scale: float = 1.0) -> np.ndarray:
     """getWorld2View2, transposed to the row-vector convention: (4, 4) float32."""

@@ -61,3 +61,16 @@ def values(n: int, C: int, high: int, seed: int = 0) -> np.ndarray:
     """(n, C) int32 values in [-high, high).  The JAX kernels carry integers in
     fp32 lanes, so against them every running sum must stay below 2^24."""
     return np.random.default_rng(seed + 1).integers(-high, high, (n, C)).astype(np.int32)
+
+
+def moved_drops(K: int, n: int, seed: int) -> np.ndarray:
+    """n sorted unique int32 positions for an output of K: a seeded number of
+    negative rows, random positions in [0, K), then rows >= K.  The drops at
+    both ends move from seed to seed while n stays, as the sets a replayed
+    CUDA graph is fed must keep their length."""
+    rng = np.random.default_rng(seed)
+    lead, tail = (int(x) for x in rng.integers(0, n // 8 + 1, 2))
+    mid = min(n - lead - tail, K)
+    tail = n - lead - mid
+    p = np.sort(rng.choice(K, mid, replace=False))
+    return np.concatenate([np.arange(-lead, 0), p, K + np.arange(tail)]).astype(np.int32)

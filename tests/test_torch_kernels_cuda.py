@@ -18,7 +18,11 @@ whole render, card vs CPU: image rtol 1e-4 / atol 2e-5 and final_T rtol
 card's expf/sinf and matmul sums round apart from the CPU's by an ulp or
 two, so a splat whose alpha sits on the 1/255 threshold can blend on one
 device and not the other: at most 0.1% of pixels may then differ, each by
-at most what one such splat moves it (2/255 in rgb, 1/255 in T).
+at most what one such splat moves it (2/255 in rgb, 1/255 in T).  Each
+kernel captured into a CUDA graph and replayed on new inputs, with eager
+calls between the replays: every result of the fills and the forward
+bitwise its plain version, of the backward bitwise the eager kernel's and
+at the gradient bar.
 """
 
 import numpy as np
@@ -139,24 +143,74 @@ def test_fill_launches_back_to_back(cuda):
         assert torch.equal(placed.cpu(), of.place_plain(p.cpu(), d[:, 0].cpu(), K))
 
 
-def test_prefix_fill_refuses_graph_capture(cuda):
-    """A CUDA graph would replay one launch's epoch, so the look-back could
-    take the words of the replay before as valid: capturing the prefix fill
-    raises, launches nothing, and leaves the stream usable."""
-    K = 3 * fill_cases.BLOCK + 5
-    pos = torch.from_numpy(fill_cases.positions("random", K)).to(cuda)
-    delta = torch.from_numpy(fill_cases.values(pos.shape[0], 4, 1 << 20)).to(cuda)
-    ref = of.prefix_fill_plain(pos.cpu(), delta.cpu(), K)
-    of.ordered_prefix_fill(pos, delta, K)
+def _capture(fn):
+    """One eager call of ``fn`` (it builds and warms the kernel), then one call
+    captured into a CUDA graph on torch's default capture stream: (graph,
+    the captured call's output tensor, which every replay rewrites)."""
+    fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _replay_in_turns(graphs, buffers, input_sets, eager, check):
+    """Feed the input sets to the graphs in turns: copy set i into graph
+    i % len(graphs)'s static buffers, replay it, make one eager call on the
+    same inputs on the same stream, and hold both results with
+    ``check(got, inputs)``.  Returns the number of replays."""
+    for i, inputs in enumerate(input_sets):
+        (graph, out), bufs = graphs[i % len(graphs)], buffers[i % len(graphs)]
+        for buf, x in zip(bufs, inputs):
+            buf.copy_(x)
+        graph.replay()
+        now = eager(*bufs)
+        torch.cuda.synchronize()
+        check(out, inputs, f"replay {i}")
+        check(now, inputs, f"eager call after replay {i}")
+    return len(input_sets)
+
+
+GRAPH_K, GRAPH_N, GRAPH_SETS = 600_001, 150_000, 8
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_prefix_fill_replays_in_cuda_graph(cuda, C):
+    """A captured prefix fill is a pure function of its inputs: two graphs,
+    captured one after the other on static buffers, replayed in turns on
+    position sets of one length whose drops move from set to set, with an
+    eager call on the same stream after each replay; every result bitwise
+    its plain version.  A capture counts one launch; replays count none."""
+    sets = [(torch.from_numpy(fill_cases.moved_drops(GRAPH_K, GRAPH_N, s)).to(cuda),
+             torch.from_numpy(fill_cases.values(GRAPH_N, C, 1 << 20, s)).to(cuda))
+            for s in range(GRAPH_SETS)]
+    buffers = [tuple(x.clone() for x in sets[i]) for i in (0, 1)]
+    graphs = [_capture(lambda b=b: of.ordered_prefix_fill(*b, GRAPH_K)) for b in buffers]
     before = launch_counts()["ordered_prefix_fill"]
-    with pytest.raises(RuntimeError, match="CUDA graph"):
-        with torch.cuda.graph(torch.cuda.CUDAGraph()):
-            of.ordered_prefix_fill(pos, delta, K)
-    assert launch_counts()["ordered_prefix_fill"] == before
-    got = of.ordered_prefix_fill(pos, delta, K)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), ref)
+
+    def check(got, inputs, what):
+        ref = of.prefix_fill_plain(*(x.cpu() for x in inputs), GRAPH_K)
+        assert torch.equal(got.cpu(), ref), what
+
+    n = _replay_in_turns(graphs, buffers, sets,
+                         lambda p, d: of.ordered_prefix_fill(p, d, GRAPH_K), check)
+    assert launch_counts()["ordered_prefix_fill"] == before + n  # the eager calls alone
+
+
+def test_place_replays_in_cuda_graph(cuda):
+    sets = [(torch.from_numpy(fill_cases.moved_drops(GRAPH_K, GRAPH_N, s)).to(cuda),
+             torch.from_numpy(fill_cases.values(GRAPH_N, 1, 1 << 20, s)[:, 0]).to(cuda))
+            for s in range(GRAPH_SETS)]
+    buffers = [tuple(x.clone() for x in sets[0])]
+    graphs = [_capture(lambda: of.ordered_place_i32(*buffers[0], GRAPH_K))]
+
+    def check(got, inputs, what):
+        ref = of.place_plain(*(x.cpu() for x in inputs), GRAPH_K)
+        assert torch.equal(got.cpu(), ref), what
+
+    _replay_in_turns(graphs, buffers, sets, lambda p, v: of.ordered_place_i32(p, v, GRAPH_K),
+                     check)
 
 
 def _screen(seed, n, W, H, opaque, device):
@@ -285,6 +339,54 @@ def test_composite_backward_kernel(cuda, opaque, chunk, sub):
     assert not bool(got[:, ~inside].any()) and not bool(got[9:].any())
     if opaque:
         assert float(out[:, 3].min()) < 1e-3  # pixels terminated early
+
+
+def _composite_sets(cuda, seeds, W=160, H=96):
+    """Inputs of one shape from different seeded scenes: (splats_t,
+    tile_chunk_start, tile_count, forward output, upstream gradient)."""
+    gx, gy = W // 16, H // 16
+    cfg = _layout_cfg(128, 0)
+    sets = []
+    for seed in seeds:
+        splats_t, binning = prepare_tiles(*_screen(seed, 1500, W, H, seed % 2 == 1, cuda),
+                                          grid_x=gx, grid_y=gy, cfg=cfg)
+        tables = (splats_t, binning.tile_chunk_start, binning.tile_count)
+        out = comp.composite_forward_plain(*tables, grid_x=gx, chunk=128)
+        grad = torch.zeros_like(out)
+        grad[:, 0:4] = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(out.shape[0], 4, 256)).astype(np.float32)).to(cuda)
+        sets.append((*tables, out, grad))
+    return sets, dict(grid_x=gx, chunk=128)
+
+
+def test_composite_forward_replays_in_cuda_graph(cuda):
+    """Replays on other scenes' binnings of one shape, eager calls between
+    them: every result bitwise the plain version."""
+    sets, kw = _composite_sets(cuda, range(20, 26))
+    fwd_sets = [x[:3] for x in sets]
+    buffers = [tuple(x.clone() for x in fwd_sets[0])]
+    graphs = [_capture(lambda: comp.composite_forward(*buffers[0], **kw))]
+
+    def check(got, inputs, what):
+        assert torch.equal(got, comp.composite_forward_plain(*inputs, **kw)), what
+
+    _replay_in_turns(graphs, buffers, fwd_sets, lambda *t: comp.composite_forward(*t, **kw),
+                     check)
+
+
+def test_composite_backward_replays_in_cuda_graph(cuda):
+    """The same for the backward: each result bitwise the eager kernel's on
+    the same inputs (it has no atomics) and at this file's gradient bar
+    against the plain version."""
+    sets, kw = _composite_sets(cuda, range(20, 26))
+    buffers = [tuple(x.clone() for x in sets[0])]
+    graphs = [_capture(lambda: comp.composite_backward(*buffers[0], **kw))]
+
+    def check(got, inputs, what):
+        assert same_bits(got, comp.composite_backward(*inputs, **kw)), what
+        assert_rows_close(got, comp.composite_backward_plain(*inputs, **kw))
+
+    _replay_in_turns(graphs, buffers, sets, lambda *t: comp.composite_backward(*t, **kw), check)
 
 
 def test_render_card_matches_cpu(cuda):

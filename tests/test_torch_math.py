@@ -109,3 +109,93 @@ def test_preprocess_matches_jax(opacity_aware):
                                          0.45, 0.36))[m], rtol=1e-4, atol=1e-4)
     close(tproj.ndc2pix(torch.tensor([-1.0, 0.0, 0.5]), W),
           jproj.ndc2pix(jnp.asarray([-1.0, 0.0, 0.5]), W))
+
+
+def test_mark_visible_five_points():
+    """The five points of tests/test_projection.py::test_mark_visible: the
+    near test only, so a point far outside the frustum is visible."""
+    view = np.eye(4, dtype=np.float32)
+    full = view @ ttf.projection_matrix(0.01, 100.0, 0.8, 0.8)
+    means = np.asarray([[0, 0, 0.1], [0, 0, -3.0], [100.0, 0, 5.0], [0, 0, 5.0], [0, 0, 0.2]],
+                       np.float32)
+    got = tproj.mark_visible(*(torch.from_numpy(a) for a in (means, view, full)))
+    ref = jproj.mark_visible(*(jnp.asarray(a) for a in (means, view, full)))
+    assert got.dtype == torch.bool and got.shape == (5,)
+    np.testing.assert_array_equal(got.numpy(), [False, False, True, True, False])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _seeded_view(rng):
+    """A world-to-view matrix (row-vector convention) with a seeded rotation
+    and translation."""
+    q = rng.normal(size=4)
+    R = ttf.quat_to_rotmat(torch.from_numpy((q / np.linalg.norm(q)).astype(np.float32))).numpy()
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = R.T
+    view[3, :3] = rng.uniform(-0.5, 0.5, 3)
+    return view
+
+
+def test_mark_visible_cloud_matches_jax():
+    """10,000 seeded points around a seeded camera, half of them behind the
+    near plane: the port equals JAX at every point whose view z lies more
+    than 4 ulps from 0.2 (the two frameworks may order the dot product's
+    sum differently); the points within 4 ulps are counted and reported."""
+    rng = np.random.default_rng(11)
+    view = _seeded_view(rng)
+    full = view @ ttf.projection_matrix(0.01, 100.0, 0.9, 0.7)
+    means = rng.uniform(-3.0, 3.0, (10_000, 3)).astype(np.float32)
+    got = tproj.mark_visible(*(torch.from_numpy(a) for a in (means, view, full))).numpy()
+    ref = np.asarray(jproj.mark_visible(*(jnp.asarray(a) for a in (means, view, full))))
+    z = means.astype(np.float64) @ view[:3, 2].astype(np.float64) + float(view[3, 2])
+    knife = np.abs(z - tproj.NEAR_Z) <= 4 * np.spacing(np.float32(tproj.NEAR_Z))
+    print(f"points within 4 ulps of the near plane: {int(knife.sum())}")
+    assert 2_000 < got.sum() < 8_000
+    np.testing.assert_array_equal(got[~knife], ref[~knife])
+
+
+def test_mark_visible_knife_edge_equals_preprocess():
+    """Points whose view z sits within a few ulps of 0.2, all on screen: the
+    port's mark_visible equals its own preprocess mask bitwise (the two share
+    one near test), and both sides of the plane occur."""
+    rng = np.random.default_rng(12)
+    view = _seeded_view(rng)
+    fovx, fovy, W, H = 0.9, 0.7, 64, 48
+    full = view @ ttf.projection_matrix(0.01, 100.0, fovx, fovy)
+    steps = np.arange(-40, 41)
+    z = np.float32(tproj.NEAR_Z) + steps.astype(np.float32) * np.spacing(np.float32(0.2))
+    p_view = np.stack([rng.uniform(-0.01, 0.01, z.shape[0]),
+                       rng.uniform(-0.01, 0.01, z.shape[0]), z], -1).astype(np.float64)
+    # p_view = means @ view[:3, :3] + view[3, :3], solved for means
+    means = (p_view - view[3, :3]) @ np.linalg.inv(view[:3, :3].astype(np.float64))
+    means = means.astype(np.float32)
+    s = np.full((z.shape[0], 3), 0.002, np.float32)
+    q = np.tile(np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), (z.shape[0], 1))
+    t = {k: torch.from_numpy(v) for k, v in dict(means=means, view=view, full=full).items()}
+    vis = tproj.mark_visible(t["means"], t["view"], t["full"])
+    pre = tproj.preprocess(t["means"], ttf.build_cov3d(torch.from_numpy(s), torch.from_numpy(q)),
+                           t["view"], t["full"], width=W, height=H,
+                           tan_fovx=float(np.tan(fovx / 2)), tan_fovy=float(np.tan(fovy / 2)))
+    assert 0 < int(vis.sum()) < z.shape[0]
+    assert torch.equal(vis, pre.mask)
+    assert torch.equal(vis, pre.depths > tproj.NEAR_Z)
+
+
+def test_unpack_cov3d_matches_jax():
+    """Bitwise JAX's layout, and the exact inverse of build_cov3d's packing."""
+    rng = np.random.default_rng(13)
+    q = _quats(rng, 64)
+    s = np.exp(rng.normal(size=(64, 3)) - 2).astype(np.float32)
+    cov6 = ttf.build_cov3d(torch.from_numpy(s), torch.from_numpy(q)).reshape(4, 16, 6)
+    got = ttf.unpack_cov3d(cov6)
+    ref = np.asarray(jtf.unpack_cov3d(jnp.asarray(cov6.numpy())))
+    assert got.shape == (4, 16, 3, 3)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(got, got.transpose(-1, -2))
+    iu = torch.triu_indices(3, 3)
+    assert torch.equal(got[..., iu[0], iu[1]], cov6)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_num_sh_coeffs_matches_jax(degree):
+    assert tsh.num_sh_coeffs(degree) == jsh.num_sh_coeffs(degree) == (degree + 1) ** 2
