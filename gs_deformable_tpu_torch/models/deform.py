@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from .. import device as device_rules
+from .. import tracing
 from ..config import DeformConfig
 from ..ops import rigid
 
@@ -248,11 +249,12 @@ def _time_column(time, xyz: torch.Tensor) -> torch.Tensor:
 def deform_offsets(net: OffsetNet, xyz: torch.Tensor, time, iteration: int,
                    cfg: DeformConfig = DeformConfig()):
     """(dx, d_scale, d_rot, d_shs); all zeros, MLP skipped, while iteration < warmup."""
-    n = xyz.shape[0]
-    if int(iteration) < cfg.warmup_iters:
-        z = xyz.new_zeros
-        return z((n, 3)), z((n, 3)), z((n, 4)), z((n, cfg.sh_coeffs * 3))
-    return net(xyz, _time_column(time, xyz), config_tier(cfg))
+    with tracing.span("gs.deform"):
+        n = xyz.shape[0]
+        if int(iteration) < cfg.warmup_iters:
+            z = xyz.new_zeros
+            return z((n, 3)), z((n, 3)), z((n, 4)), z((n, cfg.sh_coeffs * 3))
+        return net(xyz, _time_column(time, xyz), config_tier(cfg))
 
 
 def deform_se3(net: SE3Net, xyz: torch.Tensor, time, iteration: int,
@@ -261,14 +263,15 @@ def deform_se3(net: SE3Net, xyz: torch.Tensor, time, iteration: int,
     theta = |w|, the screw [w, v] / max(theta, 1e-12) integrated by
     ``exp_se3``, then ``from_homogenous(T @ to_homogenous(xyz))``.  While
     iteration < warmup, ``xyz`` itself and the net is not run."""
-    if int(iteration) < cfg.warmup_iters:
-        return xyz
-    w, v = net(xyz, _time_column(time, xyz), config_tier(cfg))
-    theta = torch.linalg.vector_norm(w, dim=-1)
-    safe = torch.clamp(theta, min=1e-12)[..., None]
-    transform = rigid.exp_se3(torch.cat([w / safe, v / safe], dim=-1), theta)
-    moved = (transform * rigid.to_homogenous(xyz)[:, None, :]).sum(dim=-1)
-    return rigid.from_homogenous(moved)
+    with tracing.span("gs.deform"):
+        if int(iteration) < cfg.warmup_iters:
+            return xyz
+        w, v = net(xyz, _time_column(time, xyz), config_tier(cfg))
+        theta = torch.linalg.vector_norm(w, dim=-1)
+        safe = torch.clamp(theta, min=1e-12)[..., None]
+        transform = rigid.exp_se3(torch.cat([w / safe, v / safe], dim=-1), theta)
+        moved = (transform * rigid.to_homogenous(xyz)[:, None, :]).sum(dim=-1)
+        return rigid.from_homogenous(moved)
 
 
 def opacity_mask_gate(latent: Dict[str, DeformMLP], xyz: torch.Tensor, time, iteration: int,
@@ -276,10 +279,11 @@ def opacity_mask_gate(latent: Dict[str, DeformMLP], xyz: torch.Tensor, time, ite
     """(N, 1) multiplicative opacity gate in [0, 1] (deform.py:373-398): the
     sigmoid of the ``opacity_mask`` head on raw xyz and t, in fp32 whatever
     ``cfg.compute_dtype`` is; ones while iteration < warmup."""
-    if int(iteration) < cfg.warmup_iters:
-        return xyz.new_ones((xyz.shape[0], 1))
-    (logit,) = latent["opacity_mask"](xyz, _time_column(time, xyz), "float32")
-    return torch.sigmoid(logit)
+    with tracing.span("gs.deform"):
+        if int(iteration) < cfg.warmup_iters:
+            return xyz.new_ones((xyz.shape[0], 1))
+        (logit,) = latent["opacity_mask"](xyz, _time_column(time, xyz), "float32")
+        return torch.sigmoid(logit)
 
 
 def rebuild(net: Optional[DeformMLP], params: Dict[str, list], device) -> Optional[DeformMLP]:

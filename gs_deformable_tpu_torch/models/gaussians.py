@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import device as device_rules
+from .. import tracing
 from ..ops import knn as knn_ops
 from ..ops.sh import rgb2sh
 from ..ops.transforms import quat_to_rotmat
@@ -184,24 +185,25 @@ def adam_step(params: Dict[str, Tree], grads: Dict[str, Tree], opt: AdamState,
     be a subtree sharing its group's learning rate).  The JAX formulas of
     gaussians.py:152-185 in the same order, bias corrections in fp32.
     Returns (new params, new AdamState); nothing is updated in place."""
-    step = opt.step + 1
-    t = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
-    new_p, new_m, new_v = {}, {}, {}
-    for k in params:
-        lr = lrs[k]
+    with tracing.span("gs.optimizer"):
+        step = opt.step + 1
+        t = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
+        new_p, new_m, new_v = {}, {}, {}
+        for k in params:
+            lr = lrs[k]
 
-        def upd(p, g, m, v):
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / bc1
-            vhat = v / bc2
-            return p - lr * mhat / (torch.sqrt(vhat) + eps), m, v
+            def upd(p, g, m, v):
+                m = b1 * m + (1 - b1) * g
+                v = b2 * v + (1 - b2) * g * g
+                mhat = m / bc1
+                vhat = v / bc2
+                return p - lr * mhat / (torch.sqrt(vhat) + eps), m, v
 
-        new_p[k], new_m[k], new_v[k] = _tree_unzip3(
-            tree_map(upd, params[k], grads[k], opt.mu[k], opt.nu[k]))
-    return new_p, AdamState(mu=new_m, nu=new_v, step=step)
+            new_p[k], new_m[k], new_v[k] = _tree_unzip3(
+                tree_map(upd, params[k], grads[k], opt.mu[k], opt.nu[k]))
+        return new_p, AdamState(mu=new_m, nu=new_v, step=step)
 
 
 @torch.no_grad()
@@ -209,14 +211,16 @@ def add_densification_stats(state: GaussianState, means2d_ndc_grad: torch.Tensor
                             visibility: torch.Tensor, radii: torch.Tensor) -> GaussianState:
     """Accumulate |dL/d ndc mean2D|, the view count and the max screen radius
     of visible alive gaussians (gaussian_model.py:1252-1257, train.py:613-615)."""
-    vis = visibility & state.alive
-    gn = torch.linalg.vector_norm(means2d_ndc_grad[:, :2], dim=-1, keepdim=True)
-    return dataclasses.replace(
-        state,
-        xyz_gradient_accum=state.xyz_gradient_accum + torch.where(vis[:, None], gn, 0.0),
-        denom=state.denom + vis[:, None].to(torch.float32),
-        max_radii2d=torch.where(vis, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
-                                state.max_radii2d))
+    with tracing.span("gs.optimizer"):
+        vis = visibility & state.alive
+        gn = torch.linalg.vector_norm(means2d_ndc_grad[:, :2], dim=-1, keepdim=True)
+        return dataclasses.replace(
+            state,
+            xyz_gradient_accum=state.xyz_gradient_accum + torch.where(vis[:, None], gn, 0.0),
+            denom=state.denom + vis[:, None].to(torch.float32),
+            max_radii2d=torch.where(vis, torch.maximum(state.max_radii2d,
+                                                       radii.to(torch.float32)),
+                                    state.max_radii2d))
 
 
 class DensifyInfo(NamedTuple):

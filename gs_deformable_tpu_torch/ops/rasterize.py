@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..config import RasterizeConfig, check_raster, layout_unit
 from . import sh as sh_ops
 from .binning import bin_gaussians
@@ -55,28 +56,33 @@ def prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_to
     The binning is aligned to ``layout_unit(cfg)`` rows, and so is Kp.
 
     ``splats_t`` carries a gradient to the screen-space inputs (reduced per
-    gaussian by ``cfg.grad_reduce``).
+    gaussian by ``cfg.grad_reduce``).  While tracing is on (``tracing``), the
+    counters ``binning.kp_rows`` and ``binning.needed_rows`` take Kp and the
+    aligned rows the frame needed (``Binning.total_aligned``).
     """
-    check_raster(cfg)
-    if (cfg.tile_x, cfg.tile_y) != (16, 16):
-        raise ValueError("the composite kernel takes 16x16 tiles")
-    tt = tiles_touched
-    tile_mask = None
-    if cfg.tile_cull:
-        with torch.no_grad():
-            tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
-                                              tile_x=cfg.tile_x, tile_y=cfg.tile_y)
-    binning = bin_gaussians(tt, rect, depths.detach(), grid_x=grid_x, grid_y=grid_y,
-                            capacity=cfg.instance_capacity, chunk=layout_unit(cfg),
-                            sort_mode=cfg.sort_mode, aligned_slack=cfg.aligned_slack,
-                            tile_mask=tile_mask)
-    P = means2d_pix.shape[0]
-    op = opacities[:, None] if opacities.dim() == 1 else opacities
-    splats = torch.cat(
-        [means2d_pix, conics, op, colors,
-         torch.zeros((P, SPLAT_WIDTH - 9), dtype=torch.float32, device=means2d_pix.device)],
-        dim=1)
-    return GatherSplatsT.apply(splats, binning.gid, cfg.grad_reduce), binning
+    with tracing.span("gs.binning"):
+        check_raster(cfg)
+        if (cfg.tile_x, cfg.tile_y) != (16, 16):
+            raise ValueError("the composite kernel takes 16x16 tiles")
+        tt = tiles_touched
+        tile_mask = None
+        if cfg.tile_cull:
+            with torch.no_grad():
+                tile_mask, tt = tile_ellipse_mask(means2d_pix, conics, opacities, rect, tt,
+                                                  tile_x=cfg.tile_x, tile_y=cfg.tile_y)
+        binning = bin_gaussians(tt, rect, depths.detach(), grid_x=grid_x, grid_y=grid_y,
+                                capacity=cfg.instance_capacity, chunk=layout_unit(cfg),
+                                sort_mode=cfg.sort_mode, aligned_slack=cfg.aligned_slack,
+                                tile_mask=tile_mask)
+        tracing.count("binning.kp_rows", binning.gid.shape[0])
+        tracing.count("binning.needed_rows", binning.total_aligned)
+        P = means2d_pix.shape[0]
+        op = opacities[:, None] if opacities.dim() == 1 else opacities
+        splats = torch.cat(
+            [means2d_pix, conics, op, colors,
+             torch.zeros((P, SPLAT_WIDTH - 9), dtype=torch.float32, device=means2d_pix.device)],
+            dim=1)
+        return GatherSplatsT.apply(splats, binning.gid, cfg.grad_reduce), binning
 
 
 def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
@@ -88,9 +94,10 @@ def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_
     """
     splats_t, binning = prepare_tiles(means2d_pix, depths, conics, opacities, colors, rect,
                                       tiles_touched, grid_x=grid_x, grid_y=grid_y, cfg=cfg)
-    out_tiles = Composite.apply(
-        splats_t, binning.tile_chunk_start, binning.tile_count, grid_x, layout_unit(cfg),
-        cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps)
+    with tracing.span("gs.composite"):
+        out_tiles = Composite.apply(
+            splats_t, binning.tile_chunk_start, binning.tile_count, grid_x, layout_unit(cfg),
+            cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps)
     return out_tiles, binning.required, binning.total_aligned
 
 
@@ -135,20 +142,21 @@ def screen_space(means3d, scales, rotations, opacities, shs, *, viewmatrix, proj
                  cov3d_precomp: Optional[torch.Tensor] = None,
                  cfg: RasterizeConfig = RasterizeConfig()) -> ScreenSpace:
     """cov3D -> EWA preprocess -> SH colour: the per-gaussian half of the render."""
-    cov3d = cov3d_precomp if cov3d_precomp is not None else build_cov3d(
-        scales, rotations, scale_modifier)
-    op = opacities[:, 0] if opacities.dim() == 2 else opacities
-    pre = preprocess(means3d, cov3d, viewmatrix, projmatrix, width=width, height=height,
-                     tan_fovx=tan_fovx, tan_fovy=tan_fovy, tile_x=cfg.tile_x,
-                     tile_y=cfg.tile_y, alive=alive,
-                     opacities=op if cfg.opacity_aware_radius else None)
-    ndc = pre.means2d_ndc
-    if means2d_offset_ndc is not None:
-        ndc = ndc + means2d_offset_ndc
-    pix = torch.stack([ndc2pix(ndc[:, 0], width), ndc2pix(ndc[:, 1], height)], dim=-1)
-    colors = colors_precomp if colors_precomp is not None else sh_ops.eval_sh_color(
-        sh_degree, shs, means3d, campos)
-    return ScreenSpace(pre, pix, ndc, colors, op)
+    with tracing.span("gs.screen_space"):
+        cov3d = cov3d_precomp if cov3d_precomp is not None else build_cov3d(
+            scales, rotations, scale_modifier)
+        op = opacities[:, 0] if opacities.dim() == 2 else opacities
+        pre = preprocess(means3d, cov3d, viewmatrix, projmatrix, width=width, height=height,
+                         tan_fovx=tan_fovx, tan_fovy=tan_fovy, tile_x=cfg.tile_x,
+                         tile_y=cfg.tile_y, alive=alive,
+                         opacities=op if cfg.opacity_aware_radius else None)
+        ndc = pre.means2d_ndc
+        if means2d_offset_ndc is not None:
+            ndc = ndc + means2d_offset_ndc
+        pix = torch.stack([ndc2pix(ndc[:, 0], width), ndc2pix(ndc[:, 1], height)], dim=-1)
+        colors = colors_precomp if colors_precomp is not None else sh_ops.eval_sh_color(
+            sh_degree, shs, means3d, campos)
+        return ScreenSpace(pre, pix, ndc, colors, op)
 
 
 def render_gaussians(means3d, scales, rotations, opacities, shs, *, bg, width: int,

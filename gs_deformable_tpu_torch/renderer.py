@@ -12,6 +12,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from . import device as device_rules
+from . import tracing
 from .config import Config, check_supported
 from .models import deform as deform_mod
 from .models.gaussians import GaussianState
@@ -51,6 +52,10 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.DeformMLP
     ``torch.where``, as the JAX version does: the where also gives every
     dead slot an exactly-zero gradient, so a NaN reached on a dead slot's
     backward path never reaches the MLP's shared weights.
+
+    While tracing is on (``tracing``), the counters ``deform.rows`` and
+    ``deform.live_rows`` take the rows each net and the gate ran over and
+    the alive ones among them.
     """
     xyz = state.xyz
     n = xyz.shape[0]
@@ -87,6 +92,11 @@ def deformed_attributes(state: GaussianState, net: Optional[deform_mod.DeformMLP
     if cfg.model.use_opacity_mask and latent is not None:
         opacity = opacity * deform_mod.opacity_mask_gate(latent, xyz, time, iteration,
                                                          cfg.deform)
+    if int(iteration) >= cfg.deform.warmup_iters:
+        nets = (mode != "none") + (cfg.model.use_opacity_mask and latent is not None)
+        if nets:
+            tracing.count("deform.rows", nets * n)
+            tracing.count_set("deform.live_rows", state.alive, nets)
     a1 = state.alive[:, None]
     means3d = torch.where(a1, means3d, 1e6)
     scales = torch.where(a1, scales, 1e-6)

@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 from . import device as device_rules
-from . import training
+from . import tracing, training
 from .config import (
     Config,
     DeformConfig,
@@ -495,11 +495,11 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
     mark = [time.perf_counter()]
 
     def note(stage, iteration, **kw):
+        if timeline is None:
+            return
         _sync(dev)
         now = time.perf_counter()
-        if timeline is not None:
-            timeline.append(dict(stage=stage, iteration=iteration,
-                                 ms=(now - mark[0]) * 1e3, **kw))
+        timeline.append(dict(stage=stage, iteration=iteration, ms=(now - mark[0]) * 1e3, **kw))
         mark[0] = now
 
     scene = Scene(source_path=args.source_path, model_path=model_path if writer else "",
@@ -670,59 +670,60 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
         n_chunks = sum(o is not None for _, _, o in pending_req)
         if (iteration % 10 == 0 or n_chunks >= 2 or len(pending_req) >= 10
                 or post_step_event(iteration, cfg, args) or iteration == cfg.opt.iterations):
-            loss = float(metrics["loss"])
-            ema_loss = 0.4 * loss + 0.6 * ema_loss
-            r = cfg.raster
-            unit = layout_unit(r)
-            kp_now = aligned_capacity(r.instance_capacity, trainer.band_tiles(cam), unit,
-                                      r.aligned_slack)
-            drained = [(int(a), int(b), None if o is None else int(o))
-                       for a, b, o in pending_req]
-            pending_req.clear()
-            req = max(a for a, _, _ in drained)
-            req_al = max(b for _, b, _ in drained)
-            n_of = sum(o if o is not None else int(a > r.instance_capacity or b > kp_now)
-                       for a, b, o in drained)
-            note("steps", iteration, overflow=n_of,
-                 losses=[float(x) for x in pending_losses], **{"from": steps_from,
-                                                               "to": iteration})
-            pending_losses.clear()
-            steps_from = iteration + 1
-            if n_of:
-                overflow_frames += n_of
-                print(f"\n[iter {iteration}] {n_of} frame(s) since last poll exceeded "
-                      f"instance capacity and were truncated ({overflow_frames} total)")
-            if req > r.instance_capacity or req_al > kp_now:
-                new_cap = r.instance_capacity
-                while new_cap < req:
-                    new_cap *= 2
-                new_slack = r.aligned_slack
-                if req_al > kp_now and new_slack >= 0:
-                    deficit = req_al - ((new_cap + unit - 1) // unit) * unit
-                    new_slack = max(new_slack, unit)
-                    while new_slack < deficit:
-                        new_slack *= 2
-                print(f"\n[iter {iteration}] instance overflow (required {req} "
-                      f"> {r.instance_capacity} or aligned {req_al} > {kp_now}); "
-                      f"growing to {new_cap}/slack {new_slack}")
-                cfg = cfg.replace(raster=dataclasses.replace(
-                    r, instance_capacity=new_cap, aligned_slack=new_slack))
-                trainer.cfg = cfg
-                trainer.clear_caches()
-                note("instance_growth", iteration, required=req, required_aligned=req_al,
-                     capacity=new_cap, aligned_slack=new_slack)
-            if not args.quiet and writer and iteration % 200 == 0:
-                el = time.time() - t_start
-                print(f"iter {iteration}: loss {ema_loss:.5f} "
-                      f"alive {int(metrics['n_alive'])} "
-                      f"({(iteration - first_iter) / max(el, 1e-9):.1f} it/s)", flush=True)
-            if tb is not None:
-                tb.add_scalar("train_loss_patches/total_loss", loss, iteration)
-                tb.add_scalar("train_loss_patches/l1_loss", float(metrics["ll1"]), iteration)
-                tb.add_scalar("total_points", int(metrics["n_alive"]), iteration)
-                tb.add_scalar("overflow_frames", overflow_frames, iteration)
-                tb.add_scalar("iter_time", (time.time() - t_start)
-                              / max(iteration - first_iter, 1) * 1e3, iteration)
+            with tracing.span("gs.drain"):
+                loss = float(metrics["loss"])
+                ema_loss = 0.4 * loss + 0.6 * ema_loss
+                r = cfg.raster
+                unit = layout_unit(r)
+                kp_now = aligned_capacity(r.instance_capacity, trainer.band_tiles(cam), unit,
+                                          r.aligned_slack)
+                drained = [(int(a), int(b), None if o is None else int(o))
+                           for a, b, o in pending_req]
+                pending_req.clear()
+                req = max(a for a, _, _ in drained)
+                req_al = max(b for _, b, _ in drained)
+                n_of = sum(o if o is not None else int(a > r.instance_capacity or b > kp_now)
+                           for a, b, o in drained)
+                note("steps", iteration, overflow=n_of,
+                     losses=[float(x) for x in pending_losses], **{"from": steps_from,
+                                                                   "to": iteration})
+                pending_losses.clear()
+                steps_from = iteration + 1
+                if n_of:
+                    overflow_frames += n_of
+                    print(f"\n[iter {iteration}] {n_of} frame(s) since last poll exceeded "
+                          f"instance capacity and were truncated ({overflow_frames} total)")
+                if req > r.instance_capacity or req_al > kp_now:
+                    new_cap = r.instance_capacity
+                    while new_cap < req:
+                        new_cap *= 2
+                    new_slack = r.aligned_slack
+                    if req_al > kp_now and new_slack >= 0:
+                        deficit = req_al - ((new_cap + unit - 1) // unit) * unit
+                        new_slack = max(new_slack, unit)
+                        while new_slack < deficit:
+                            new_slack *= 2
+                    print(f"\n[iter {iteration}] instance overflow (required {req} "
+                          f"> {r.instance_capacity} or aligned {req_al} > {kp_now}); "
+                          f"growing to {new_cap}/slack {new_slack}")
+                    cfg = cfg.replace(raster=dataclasses.replace(
+                        r, instance_capacity=new_cap, aligned_slack=new_slack))
+                    trainer.cfg = cfg
+                    trainer.clear_caches()
+                    note("instance_growth", iteration, required=req, required_aligned=req_al,
+                         capacity=new_cap, aligned_slack=new_slack)
+                if not args.quiet and writer and iteration % 200 == 0:
+                    el = time.time() - t_start
+                    print(f"iter {iteration}: loss {ema_loss:.5f} "
+                          f"alive {int(metrics['n_alive'])} "
+                          f"({(iteration - first_iter) / max(el, 1e-9):.1f} it/s)", flush=True)
+                if tb is not None:
+                    tb.add_scalar("train_loss_patches/total_loss", loss, iteration)
+                    tb.add_scalar("train_loss_patches/l1_loss", float(metrics["ll1"]), iteration)
+                    tb.add_scalar("total_points", int(metrics["n_alive"]), iteration)
+                    tb.add_scalar("overflow_frames", overflow_frames, iteration)
+                    tb.add_scalar("iter_time", (time.time() - t_start)
+                                  / max(iteration - first_iter, 1) * 1e3, iteration)
 
         if iteration in args.test_iterations:
             full = trainer.full_state()
@@ -741,8 +742,9 @@ def train(args, timeline: Optional[List[dict]] = None) -> str:
             if (iteration > cfg.opt.densify_from_iter
                     and iteration % cfg.opt.densification_interval == 0):
                 use_screen = iteration > cfg.opt.opacity_reset_interval
-                trainer.ts, info = trainer.densify_fn(use_screen)(
-                    trainer.ts, cfg.opt.densify_grad_threshold, cfg.opt.min_opacity)
+                with tracing.span("gs.densify"):
+                    trainer.ts, info = trainer.densify_fn(use_screen)(
+                        trainer.ts, cfg.opt.densify_grad_threshold, cfg.opt.min_opacity)
                 if int(info["n_dropped"]) > 0:
                     print(f"\n[WARN iter {iteration}] densify dropped "
                           f"{int(info['n_dropped'])} children (capacity full)")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import device as device_rules
+from . import tracing
 from .config import Config, check_supported, layout_unit
 from .models.deform import (
     DeformMLP,
@@ -154,66 +155,68 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
 
     def step(ts: TrainState, cam: CameraArrays, gt_image: torch.Tensor, bg: torch.Tensor,
              iteration: int):
-        device_rules.check_on("gt_image", gt_image, dev)
-        g0 = ts.gaussians
-        alive_f = g0.alive.to(torch.float32)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in g0.params().items()}
-        net_params = [] if ts.net is None else tree_leaves(ts.net.param_tree())
-        screen_zero = torch.zeros((g0.capacity, 2), dtype=torch.float32, device=dev,
-                                  requires_grad=True)
+        with tracing.span("gs.step"):
+            device_rules.check_on("gt_image", gt_image, dev)
+            g0 = ts.gaussians
+            alive_f = g0.alive.to(torch.float32)
+            leaves = {k: v.detach().requires_grad_(True) for k, v in g0.params().items()}
+            net_params = [] if ts.net is None else tree_leaves(ts.net.param_tree())
+            screen_zero = torch.zeros((g0.capacity, 2), dtype=torch.float32, device=dev,
+                                      requires_grad=True)
 
-        out, dx = render(g0.with_params(leaves), ts.net, cam, iteration=iteration, bg=bg,
-                         width=width, height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
-                         active_sh_degree=active_sh_degree, cfg=cfg,
-                         means2d_offset_ndc=screen_zero, latent=ts.latent, device=dev)
-        img = out.image
-        ll1 = l1_loss(img, gt_image)
-        # dx is exactly 0 in dead slots and during warmup, where sqrt has an
-        # infinite derivative: the double where keeps 0 * inf out of the MLP.
-        sq = (dx * dx).sum(dim=-1)
-        nz = sq > 0
-        norms = torch.sqrt(torch.where(nz, sq, 1.0)) * nz.to(torch.float32)
-        offset_norm = (norms * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
-        ssim_val = ssim(img, gt_image)
-        loss = ((1.0 - o.lambda_dssim) * (ll1 + o.lambda_offset_norm * offset_norm)
-                + o.lambda_dssim * (1.0 - ssim_val))
+            out, dx = render(g0.with_params(leaves), ts.net, cam, iteration=iteration, bg=bg,
+                             width=width, height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
+                             active_sh_degree=active_sh_degree, cfg=cfg,
+                             means2d_offset_ndc=screen_zero, latent=ts.latent, device=dev)
+            img = out.image
+            ll1 = l1_loss(img, gt_image)
+            # dx is exactly 0 in dead slots and during warmup, where sqrt has an
+            # infinite derivative: the double where keeps 0 * inf out of the MLP.
+            sq = (dx * dx).sum(dim=-1)
+            nz = sq > 0
+            norms = torch.sqrt(torch.where(nz, sq, 1.0)) * nz.to(torch.float32)
+            offset_norm = (norms * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
+            ssim_val = ssim(img, gt_image)
+            loss = ((1.0 - o.lambda_dssim) * (ll1 + o.lambda_offset_norm * offset_norm)
+                    + o.lambda_dssim * (1.0 - ssim_val))
 
-        inputs = [*leaves.values(), *net_params, screen_zero]
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-        g_screen = grads[-1]
-        grad_tree = dict(zip(leaves, grads[:len(leaves)]))
-        if ts.net is not None:
-            it = iter(grads[len(leaves):-1])
-            grad_tree["offset_model"] = tree_map(lambda _: next(it), ts.net.param_tree())
+            inputs = [*leaves.values(), *net_params, screen_zero]
+            with tracing.span("gs.backward"):
+                grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+            g_screen = grads[-1]
+            grad_tree = dict(zip(leaves, grads[:len(leaves)]))
+            if ts.net is not None:
+                it = iter(grads[len(leaves):-1])
+                grad_tree["offset_model"] = tree_map(lambda _: next(it), ts.net.param_tree())
 
-        gstate = add_densification_stats(g0, g_screen,
-                                          out.visibility & (iteration < o.densify_until_iter),
-                                          out.radii)
-        gstate = dataclasses.replace(gstate, last_offset_norm=(norms * alive_f).detach())
+            gstate = add_densification_stats(g0, g_screen,
+                                              out.visibility & (iteration < o.densify_until_iter),
+                                              out.radii)
+            gstate = dataclasses.replace(gstate, last_offset_norm=(norms * alive_f).detach())
 
-        lrs = learning_rates(iteration, cfg, spatial_lr_scale, device=dev)
-        new_params, new_adam = adam_step(_params(gstate, ts.net), grad_tree, ts.adam, lrs,
-                                         b1=o.adam_b1, b2=o.adam_b2, eps=o.adam_eps)
-        new_net = new_params.pop("offset_model", None)
-        if ts.net is not None:
+            lrs = learning_rates(iteration, cfg, spatial_lr_scale, device=dev)
+            new_params, new_adam = adam_step(_params(gstate, ts.net), grad_tree, ts.adam, lrs,
+                                             b1=o.adam_b1, b2=o.adam_b2, eps=o.adam_eps)
+            new_net = new_params.pop("offset_model", None)
+            if ts.net is not None:
+                with torch.no_grad():
+                    for p, v in zip(net_params, tree_leaves(new_net)):
+                        p.copy_(v)
+            gstate = gstate.with_params(new_params)
+
             with torch.no_grad():
-                for p, v in zip(net_params, tree_leaves(new_net)):
-                    p.copy_(v)
-        gstate = gstate.with_params(new_params)
-
-        with torch.no_grad():
-            metrics = {
-                "loss": loss.detach(),
-                "ll1": ll1.detach(),
-                "ssim": ssim_val.detach(),
-                "psnr": psnr(img[None], gt_image[None]).mean(),
-                "offset_norm": offset_norm.detach(),
-                "required_instances": out.required_instances,
-                "required_aligned": out.required_aligned,
-                "n_alive": gstate.num_alive,
-            }
-        return dataclasses.replace(ts, gaussians=gstate, adam=new_adam), metrics
+                metrics = {
+                    "loss": loss.detach(),
+                    "ll1": ll1.detach(),
+                    "ssim": ssim_val.detach(),
+                    "psnr": psnr(img[None], gt_image[None]).mean(),
+                    "offset_norm": offset_norm.detach(),
+                    "required_instances": out.required_instances,
+                    "required_aligned": out.required_aligned,
+                    "n_alive": gstate.num_alive,
+                }
+            return dataclasses.replace(ts, gaussians=gstate, adam=new_adam), metrics
 
     return step
 
@@ -261,28 +264,29 @@ def chunk_loop(step: Callable, *, kp: int, instance_capacity: int, chunk_max: in
 
     def run(ts: TrainState, cams: CameraArrays, gts: torch.Tensor, bg: torch.Tensor,
             it0: int, n: int, losses: Optional[list] = None):
-        if not 0 <= n <= chunk_max:
-            raise ValueError(f"n must lie in [0, {chunk_max}], got {n}")
-        if gts.shape[0] != chunk_max or cams.time.shape[0] != chunk_max:
-            raise ValueError(f"cams and gts must be stacked on a leading axis of {chunk_max}")
-        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-        metrics = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in last_keys[:-1]}
-        metrics.update(n_alive=zero_i, required_instances=zero_i, required_aligned=zero_i,
-                       overflow_frames=zero_i)
-        for i in range(n):
-            cam = CameraArrays(*(x[i] for x in cams))
-            ts, m = step(ts, cam, gts[i], bg, it0 + i)
-            over = ((m["required_instances"] > instance_capacity)
-                    | (m["required_aligned"] > kp))
-            if losses is not None:
-                losses.append(m["loss"])
-            metrics.update({k: m[k] for k in last_keys})
-            metrics["required_instances"] = torch.maximum(metrics["required_instances"],
-                                                          m["required_instances"])
-            metrics["required_aligned"] = torch.maximum(metrics["required_aligned"],
-                                                        m["required_aligned"])
-            metrics["overflow_frames"] = metrics["overflow_frames"] + over.to(torch.int32)
-        return ts, metrics
+        with tracing.span("gs.chunk"):
+            if not 0 <= n <= chunk_max:
+                raise ValueError(f"n must lie in [0, {chunk_max}], got {n}")
+            if gts.shape[0] != chunk_max or cams.time.shape[0] != chunk_max:
+                raise ValueError(f"cams and gts must be stacked on a leading axis of {chunk_max}")
+            zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+            metrics = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in last_keys[:-1]}
+            metrics.update(n_alive=zero_i, required_instances=zero_i, required_aligned=zero_i,
+                           overflow_frames=zero_i)
+            for i in range(n):
+                cam = CameraArrays(*(x[i] for x in cams))
+                ts, m = step(ts, cam, gts[i], bg, it0 + i)
+                over = ((m["required_instances"] > instance_capacity)
+                        | (m["required_aligned"] > kp))
+                if losses is not None:
+                    losses.append(m["loss"])
+                metrics.update({k: m[k] for k in last_keys})
+                metrics["required_instances"] = torch.maximum(metrics["required_instances"],
+                                                              m["required_instances"])
+                metrics["required_aligned"] = torch.maximum(metrics["required_aligned"],
+                                                            m["required_aligned"])
+                metrics["overflow_frames"] = metrics["overflow_frames"] + over.to(torch.int32)
+            return ts, metrics
 
     return run
 
@@ -302,7 +306,7 @@ def make_eval_render(cfg: Config, *, width: int, height: int, tan_fovx: float,
     def run(state: GaussianState, net: Optional[DeformMLP], cam: CameraArrays,
             bg: torch.Tensor, iteration: int,
             latent: Optional[Dict[str, DeformMLP]] = None) -> torch.Tensor:
-        with torch.no_grad():
+        with tracing.span("gs.frame"), torch.no_grad():
             out, _ = render(state, net, cam, iteration=iteration, bg=bg, width=width,
                             height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
                             active_sh_degree=active_sh_degree, cfg=cfg, latent=latent,

@@ -15,9 +15,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
+
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred - target).abs().mean()
+    with tracing.span("gs.loss"):
+        return (pred - target).abs().mean()
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -73,4 +76,5 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          sigma: float = 1.5) -> torch.Tensor:
     """Mean SSIM over a (C, H, W) image pair."""
-    return ssim_map(img1, img2, window_size, sigma).mean()
+    with tracing.span("gs.loss"):
+        return ssim_map(img1, img2, window_size, sigma).mean()
