@@ -243,6 +243,25 @@ Phases (any failure raises and the script exits non-zero):
    one turned in it): bitwise the near cull of the render path's
    preprocess (its depths > 0.2), and every gaussian it keeps visible.
 
+17. the deformation trunk's epilogues (``ops/kernels/trunk.py``,
+   ``csrc/trunk.cu``) at the main path's shapes: 1,048,576 and 262,144 rows
+   (the train cells' capacities) of the 8 x 256 nets' 256 columns, written
+   into a whole operand and into the last 256 columns of the skip layer's
+   320-wide ``[x | 0 | h]`` operand (the backward reads its cotangent and
+   mask from such slices).  ``trunk_bias_relu`` bitwise
+   ``relu(y + b).to(bfloat16)``; ``trunk_relu_mask`` bitwise its plain
+   version in both bf16 tiers, its column sums (the bias's cotangent)
+   within fp32 summation of the float64 sums (n x 2^-24 of the sum of the
+   magnitudes); median times, the plain versions' times and the least time
+   at 3.35 TB/s (no one PyTorch call computes either: library "none").
+   The heads' three-way bf16 split of their fp32 cotangent
+   (``models.deform._split3``, plain PyTorch) at 1,048,576 x 58 into its
+   64-column parts: exact, and timed.  Their launches in phases 3, 6, 9, 12
+   and 15 go into the kernel record: a bf16-tier net past its warmup
+   launches the forward epilogue once a hidden layer a frame or step, the
+   backward one once a hidden layer a step (checked exactly in phases 3,
+   5, 6, 8, 9 and 14).
+
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
 PERF.md section 5).
@@ -292,6 +311,11 @@ PACKED_SUB = 32  # bench.py:251 takes RasterizeConfig's default sub_chunk
 CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
 TURNS, TURN_STEPS = 4, 5  # chained packed / mixed steps, in turns
 TRAIN_W = TRAIN_H = 800
+# Phase 17: the trunk's rows in the train cells (capacities of 400k and 100k
+# gaussians), the 8 x 256 nets' width and the skip layer's operand [x | 0 | h]
+# (the encoded xyz's 63 columns padded to 64).
+TRUNK_ROWS, TRUNK_WIDTH, TRUNK_SKIP = (1 << 20, 1 << 18), 256, 64
+TRUNK_HEADS, TRUNK_HEAD_COLS = 58, 64
 TRAIN_TILES = (TRAIN_W // 16) * (TRAIN_H // 16)
 TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
 LEARN_ICAP = 512 * 1024
@@ -422,6 +446,23 @@ class Timer:
 
 def bytes_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def launches_want(per_unit, units, trunk_layers=0, backward=True):
+    """Each kernel's launches over ``units`` frames or steps: the
+    rasterizer's ``per_unit`` (RENDER_LAUNCHES or STEP_LAUNCHES) a unit,
+    and the deformation trunk's epilogues once a unit for each of the
+    ``trunk_layers`` hidden layers of the nets that run in a bf16 tier,
+    forward and, with ``backward``, backward."""
+    want = dict.fromkeys(STEP_LAUNCHES, 0) | {k: v * units for k, v in per_unit.items()}
+    want["trunk_bias_relu"] = trunk_layers * units
+    want["trunk_relu_mask"] = trunk_layers * units if backward else 0
+    return want
+
+
+def raster_launches(counts):
+    """The rasterizer's kernels' entries of ``launch_counts()``."""
+    return {k: counts[k] for k in STEP_LAUNCHES}
 
 
 def fill_inputs(torch, rng, n, K, C, active, mean_len):
@@ -832,7 +873,7 @@ def reduced_scene_check(torch):
         counts = launch_counts()
         if dev == "cpu" and any(counts.values()):
             raise AssertionError(f"CPU render launched kernels: {counts}")
-        if dev == "cuda" and counts != dict(RENDER_LAUNCHES, composite_backward=0):
+        if dev == "cuda" and counts != launches_want(RENDER_LAUNCHES, 1):
             raise AssertionError(f"reduced render launch counts {counts}")
         if int(out.required_instances) > cfg.raster.instance_capacity:
             raise AssertionError("reduced scene overflowed its instance capacity")
@@ -1001,7 +1042,7 @@ def train_phase(torch):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
     counts = launch_counts()
-    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    want = launches_want(STEP_LAUNCHES, TRAIN_STEPS, cfg.deform.depth)
     log(f"  launches over {TRAIN_STEPS} steps: {counts}")
     if counts != want:
         raise AssertionError(f"train launch counts {counts}, expected {want}")
@@ -1175,7 +1216,7 @@ def reduced_step_check(torch, **model):
         reset_launch_counts()
         ts, m = step(ts, cam, gt, torch.zeros(3, device=dev), ITERATION)
         counts = launch_counts()
-        want = STEP_LAUNCHES if dev == "cuda" else dict.fromkeys(STEP_LAUNCHES, 0)
+        want = launches_want(STEP_LAUNCHES, 1 if dev == "cuda" else 0)
         if counts != want:
             raise AssertionError(f"reduced step on {dev} launched {counts}, expected {want}")
         res[dev] = (float(m["loss"]), [(k, t.cpu()) for k, t in mu_leaves(ts)])
@@ -1290,7 +1331,7 @@ def chunk_phase(torch):
         metrics.append(m)
     total_ms = (time.perf_counter() - t_all) * 1e3
     counts = launch_counts()
-    want = {k: v * CHUNK_MAX * CHUNKS for k, v in STEP_LAUNCHES.items()}
+    want = launches_want(STEP_LAUNCHES, CHUNK_MAX * CHUNKS, cfg.deform.depth)
     log(f"  launches over {CHUNKS} chunks of {CHUNK_MAX} steps: {counts}")
     if counts != want:
         raise AssertionError(f"chunked train launch counts {counts}, expected {want}")
@@ -1772,7 +1813,7 @@ def scene_phase(torch, timer, root):
             "composite_backward": SCENE_STEPS + SCENE_GROWN_STEPS}
     want["ordered_prefix_fill"] = 2 * want["composite_forward"]
     want["ordered_place_i32"] = want["composite_forward"]
-    if counts != want:
+    if raster_launches(counts) != want:
         raise AssertionError(f"scene path launches {counts}, expected {want}")
     times["ms_per_step"] = float(np.median(step_ms))
     times["ms_per_step_grown"] = float(np.median(grown_ms))
@@ -1871,7 +1912,7 @@ def recorded_checks(torch, timer, rec, frame, counts, cfg, label, backward):
     the backward on its recorded forward output and upstream gradient.
     ``counts``: the launch counts of the run, which the recorder must have
     seen all of."""
-    if rec["calls"] != counts:
+    if rec["calls"] != raster_launches(counts):
         raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
     f = rec["frames"][frame]
     names = [x[0] for x in f["fills"]]
@@ -2062,7 +2103,7 @@ def cli_phase(torch, timer, root):
     want["ordered_place_i32"] = want["composite_forward"]
     log(f"  trained {last} iterations in {train_s:.1f} s; the viewer's socket "
         f"{'bound' if viewer_bound else 'did not bind'}; launches {counts}")
-    if counts != want:
+    if raster_launches(counts) != want:
         raise AssertionError(f"trainer launches {counts}, expected {want} ({last} steps and "
                              f"{report_views} report views)")
 
@@ -2120,7 +2161,7 @@ def cli_phase(torch, timer, root):
     views = SCENE_TRAIN + SCENE_TEST
     rwant = {"composite_forward": views, "composite_backward": 0,
              "ordered_prefix_fill": 2 * views, "ordered_place_i32": views}
-    if rcounts != rwant:
+    if raster_launches(rcounts) != rwant:
         raise AssertionError(f"render CLI launches {rcounts}, expected {rwant}")
     test_dir = os.path.join(model, "test", f"ours_{last}")
     for sub in ("renders", "gt"):
@@ -2451,7 +2492,7 @@ def band_frame_check(torch, rec, frame, counts, cfg, label):
     from gs_deformable_tpu_torch.ops.kernels import composite as comp
     from gs_deformable_tpu_torch.ops.kernels import ordered_fill as of
 
-    if rec["calls"] != counts:
+    if rec["calls"] != raster_launches(counts):
         raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
     f = rec["frames"][frame]
     if f["composite_forward"] is None or f["composite_backward"] is None or len(f["fills"]) != 3:
@@ -2523,7 +2564,7 @@ def sharded_run(torch, mesh, cfg, ts, cams, gts, kw, label, views_of):
                 if int(m["required_instances"]) > cfg.raster.instance_capacity:
                     raise AssertionError(f"{label}: instance overflow")
     counts = launch_counts()
-    want = {kk: v * MESH_STEPS for kk, v in STEP_LAUNCHES.items()}
+    want = launches_want(STEP_LAUNCHES, MESH_STEPS)  # the fp32 tier: no trunk epilogue
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     # The collectives' share, from further steps whose collectives are timed
@@ -3247,7 +3288,7 @@ def quality_phase(torch, timer, root, iters=QUALITY_ITERS, warmup=QUALITY_WARMUP
             ("render CLI", run["render_launches"], QUALITY_TRAIN + QUALITY_TEST, 0)):
         want = {"composite_forward": forward, "composite_backward": backward,
                 "ordered_prefix_fill": 2 * forward, "ordered_place_i32": forward}
-        if got != want:
+        if raster_launches(got) != want:
             raise AssertionError(f"{what} launches {got}, expected {want}")
     if not checks:
         return rec
@@ -3514,6 +3555,81 @@ def graph_phase(torch, timer, card, Kp):
     return {"kernels": recs, "mark_visible": visible}
 
 
+def sums_within_fp32(sums, values):
+    """Largest |column sum - float64 sum| over 2^-24 x the column's sum of
+    magnitudes; raises past n (recursive fp32 summation's bound)."""
+    v = values.double()
+    ratio = float(((sums.double() - v.sum(0)).abs() / (2.0 ** -24 * v.abs().sum(0))).max())
+    if not ratio <= v.shape[0]:
+        raise AssertionError(f"column sums off by {ratio} x 2^-24 of their magnitude")
+    return ratio
+
+
+def trunk_phase(torch, timer):
+    """Phase 17: the trunk's epilogues bitwise their plain versions at the
+    main path's shapes, timed, and the heads' split."""
+    from gs_deformable_tpu_torch.models import deform as tdeform
+    from gs_deformable_tpu_torch.ops.kernels import trunk as tk
+
+    calls = {"trunk_bias_relu": [], "trunk_relu_mask": []}
+    for n in TRUNK_ROWS:
+        g = torch.Generator(device="cuda").manual_seed(n)
+        for off in (0, TRUNK_SKIP):
+            ld = off + TRUNK_WIDTH
+            label = f"{n} x {TRUNK_WIDTH}" + (f" in a {ld}-wide operand" if off else "")
+            y = torch.randn((n, TRUNK_WIDTH), device="cuda", generator=g)
+            b = torch.randn((TRUNK_WIDTH,), device="cuda", generator=g) * 0.1
+            act = torch.zeros((n, ld), device="cuda", dtype=torch.bfloat16)
+            a = act[:, off:]
+            tk.bias_relu_bf16(y, b, a)
+            torch.cuda.synchronize()
+            if not torch.equal(a, tk.bias_relu_plain(y, b)):
+                raise AssertionError(f"trunk_bias_relu ({label}) differs from its plain version")
+            rec = {"shape": label, "n": n, "C": TRUNK_WIDTH, "ld": ld, "max_abs_err": 0.0,
+                   "ms": timer.ms(lambda: tk.bias_relu_bf16(y, b, a), 20),
+                   "plain_ms": timer.ms(lambda: tk.bias_relu_plain(y, b), 20),
+                   "bound_ms": bytes_ms(n * TRUNK_WIDTH * (4 + 2)), "bound_by": "bytes"}
+            calls["trunk_bias_relu"].append(rec)
+            log(f"  trunk_bias_relu {label}: kernel {rec['ms']:.4f} ms  plain "
+                f"{rec['plain_ms']:.4f}  bound {rec['bound_ms']:.4f}  bitwise equal")
+            del y
+            cot = torch.randn((n, ld), device="cuda", generator=g)[:, off:]
+            out = torch.empty((n, TRUNK_WIDTH), device="cuda", dtype=torch.bfloat16)
+            for rounded in (True, False):
+                sums = tk.relu_mask_bf16(cot, a, out, rounded)
+                ref, _ = tk.relu_mask_plain(cot, a, rounded)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"trunk_relu_mask ({label}, rounded {rounded}) "
+                                         f"differs from its plain version")
+                ratio = sums_within_fp32(sums, ref.float() if rounded
+                                         else torch.where(a > 0, cot, 0))
+                rec = {"shape": label, "n": n, "C": TRUNK_WIDTH, "ld": ld, "rounded": rounded,
+                       "max_abs_err": 0.0, "sum_err_over_2^-24_magnitude": ratio,
+                       "ms": timer.ms(lambda: tk.relu_mask_bf16(cot, a, out, rounded), 20),
+                       "plain_ms": timer.ms(lambda: tk.relu_mask_plain(cot, a, rounded), 20),
+                       "bound_ms": bytes_ms(n * TRUNK_WIDTH * (4 + 2 + 2)), "bound_by": "bytes"}
+                calls["trunk_relu_mask"].append(rec)
+                log(f"  trunk_relu_mask {label} rounded {rounded}: kernel {rec['ms']:.4f} ms  "
+                    f"plain {rec['plain_ms']:.4f}  bound {rec['bound_ms']:.4f}  bitwise equal, "
+                    f"sums within {ratio:.1f} x 2^-24 of their magnitude")
+            del cot, out, act, a
+    n = TRUNK_ROWS[0]
+    cot = torch.randn((n, TRUNK_HEADS), device="cuda") * 1e-3
+    parts = tdeform._split3(cot, TRUNK_HEAD_COLS).double()
+    c = TRUNK_HEAD_COLS
+    exact = torch.equal((parts[:, :TRUNK_HEADS] + parts[:, c:c + TRUNK_HEADS])
+                        + parts[:, 2 * c:2 * c + TRUNK_HEADS], cot.double())
+    if not exact or bool(parts[:, TRUNK_HEADS:c].any()):
+        raise AssertionError("the heads' three-way split is not exact")
+    split = {"shape": f"{n} x {TRUNK_HEADS} -> 3 x {c}", "exact": True,
+             "ms": timer.ms(lambda: tdeform._split3(cot, TRUNK_HEAD_COLS), 20),
+             "bound_ms": bytes_ms(n * (TRUNK_HEADS * 4 + 3 * c * 2)), "bound_by": "bytes"}
+    log(f"  heads' split {split['shape']}: {split['ms']:.4f} ms  bound {split['bound_ms']:.4f}  "
+        f"exact")
+    return {"calls": calls, "heads_split": split}
+
+
 def main():
     import torch
 
@@ -3575,8 +3691,7 @@ def main():
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
-    want = {k: v * FRAMES for k, v in RENDER_LAUNCHES.items()}
-    want["composite_backward"] = 0
+    want = launches_want(RENDER_LAUNCHES, FRAMES, cfg.deform.depth, backward=False)
     log(f"  launches over {FRAMES} frames: {counts}")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -3672,6 +3787,11 @@ def main():
     graph_rec["seconds"] = time.time() - t_start - phase_s["phase 16"]
     log(f"  phase 16 took {graph_rec['seconds']:.1f} s")
 
+    phase("phase 17: the deformation trunk's epilogues at the main path's shapes, the heads' "
+          "split")
+    log(f"  {card}")
+    trunk_rec = trunk_phase(torch, timer)
+
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
@@ -3720,6 +3840,17 @@ def main():
          "bound_by": pbwd["bound_by"], "library_ms": None,
          "blocks_per_sm": occupancy["composite_backward"], "calls": [pbwd]},
     ]
+    # Phase 17: the trunk's epilogues (no TPU counterpart: XLA fuses the bias,
+    # ReLU and casts into its dot); the first call of each is the cell-4
+    # shape, 1,048,576 x 256, the "bfloat16" tier's for the mask.
+    for name, calls in trunk_rec["calls"].items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gs_deformable_tpu_torch/csrc/trunk.cu",
+            "replaces": None, "launches": train_counts[name], "launches_render": counts[name],
+            "launches_chunked": chunk_counts[name], "launches_cli": cli_rec["launches"][name],
+            "launches_quality": quality_rec["run"]["launches"][name], "max_abs_err": 0.0,
+            **{k: calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "calls": calls})
     # The band frames that phase 14's ranks recorded inside their sharded
     # runs, each rank's one frame held against the plain versions, and the
     # launches of each rank's 10 steps.
@@ -3772,7 +3903,7 @@ def main():
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
-        "quality": quality_rec, "graph": graph_rec,
+        "quality": quality_rec, "graph": graph_rec, "trunk": trunk_rec,
         "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }

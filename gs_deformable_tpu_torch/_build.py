@@ -26,7 +26,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "kernels_build")
-SOURCES = ("ordered_fill", "composite_fwd", "composite_bwd")
+SOURCES = ("ordered_fill", "composite_fwd", "composite_bwd", "trunk")
 
 # -fmad=false: the composite's float ops round one by one, as the plain
 # PyTorch version's separate elementwise kernels do, so the two agree on

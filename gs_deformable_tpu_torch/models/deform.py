@@ -19,15 +19,22 @@ Weights keep the JAX orientation: ``w`` is (in, out) and a layer is
 ``x @ w + b``.  Compute tiers:
 
 - "float32": fp32 matmuls (TF32 off, see ``device.pin_fp32``);
-- "bfloat16" (default): operands rounded to bf16 and multiplied in fp32, as
-  the JAX dot with ``preferred_element_type=float32`` does.  A bf16
-  ``torch.matmul`` would round its output to bf16 too, which the JAX tier
-  does not.  Autograd rounds each cotangent at the cast back to bf16,
-  exactly as the transpose of JAX's ``astype(bfloat16)`` does;
+- "bfloat16" (default): operands rounded to bf16, products summed in fp32
+  with an fp32 result, as the JAX dot with ``preferred_element_type=float32``
+  does.  Each cotangent is rounded to bf16 where the forward rounded its
+  primal, exactly as the transpose of JAX's ``astype(bfloat16)`` does;
 - "bfloat16_bwd" (``DeformConfig.bf16_cotangents``): the same forward, and
   a backward that rounds the incoming cotangent to bf16 before both
   transposed products (fp32 sums), as JAX's ``_bf16_mm`` (deform.py:71-104);
 - "float32_3x" runs as "float32".
+
+The two bf16 tiers run the whole trunk and its heads as one autograd
+function, ``_Bf16Trunk``.  On the card every product takes bf16 operands on
+the tensor cores with an fp32 result (``torch.mm(..., out_dtype=float32)``:
+a product of two bf16 values is exact in fp32), and each hidden activation
+is stored as the bf16 the next layer rounds it to
+(``ops.kernels.trunk``).  On the CPU the same function multiplies the
+upcast operands, which is the plain mirror of the formulation above.
 
 The offset and SE(3) nets run in the config's tier.  The opacity gate runs
 in fp32 whatever the config says, as JAX's does (deform.py:388 passes no
@@ -48,6 +55,7 @@ from .. import device as device_rules
 from .. import tracing
 from ..config import DeformConfig
 from ..ops import rigid
+from ..ops.kernels import trunk as trunk_kernels
 
 LATENT_HEADS = ("rot", "scaling", "opacity_mask", "shs")
 
@@ -125,34 +133,178 @@ class _Dense(nn.Module):
         self.w = nn.Parameter(w)
         self.b = nn.Parameter(b)
 
-    def forward(self, x: torch.Tensor, tier: str) -> torch.Tensor:
-        return _matmul(x, self.w, tier) + self.b
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
 
 
-class _Bf16CotangentMatmul(torch.autograd.Function):
-    """bf16-rounded operands, fp32 product; the backward rounds the cotangent
-    to bf16 before ``g @ w.T`` and ``x.T @ g`` (JAX's ``_bf16_mm``)."""
+_BF16 = torch.bfloat16
+_F32 = torch.float32
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 product of two bf16 matrices: on the tensor cores with an
+    fp32 result on the card, of the upcast operands on the CPU."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=_F32)
+    return a.to(_F32).mm(b.to(_F32))
+
+
+def _split3(g: torch.Tensor, cols: int) -> torch.Tensor:
+    """fp32 ``g`` (n, k) as bf16 ``[hi | mid | lo]`` (n, 3 * cols), each part
+    ``cols`` wide with zeros beyond ``k``: hi = bf16(g), mid = bf16(g - hi),
+    lo = bf16(g - hi - mid).  Each difference is exact in fp32 and lo holds
+    the last 8 or fewer significant bits, so hi + mid + lo == g wherever
+    |g| >= 2^-110 (below, bf16's coarser subnormals drop what lies under
+    2^-133)."""
+    n, k = g.shape
+    out = g.new_zeros((n, 3 * cols), dtype=_BF16)
+    rest = g
+    for i in range(3):
+        part = out[:, i * cols:i * cols + k]
+        part.copy_(rest)
+        if i < 2:
+            rest = rest - part.to(_F32)
+    return out
+
+
+def _exact_heads(a: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The heads' backward products with the fp32 cotangent ``g``, every
+    term exact: ``(a.T @ g, g @ w.T)`` for bf16 ``a`` and ``w``.  On the card
+    ``g`` goes in once split into three bf16 parts, summed in fp32; on the
+    CPU as it is."""
+    if not a.is_cuda:
+        return a.to(_F32).t().mm(g), g.mm(w.to(_F32).t())
+    k = g.shape[1]
+    cols = -(-k // 8) * 8
+    g3 = _split3(g, cols)
+    p = torch.mm(a.t(), g3, out_dtype=_F32)
+    w3 = w.new_zeros((3 * cols, w.shape[0]))
+    for i in range(3):
+        w3[i * cols:i * cols + k] = w.t()
+    return ((p[:, :k] + p[:, cols:cols + k]) + p[:, 2 * cols:2 * cols + k],
+            torch.mm(g3, w3, out_dtype=_F32))
+
+
+def _pad_rows(w: torch.Tensor, k: int, lead: int) -> torch.Tensor:
+    """``w`` with ``k - rows`` zero rows after its first ``lead``."""
+    if w.shape[0] == k:
+        return w
+    return torch.cat([w[:lead], w.new_zeros((k - w.shape[0], w.shape[1])), w[lead:]])
+
+
+def _unpad_rows(dw: torch.Tensor, rows: int, lead: int) -> torch.Tensor:
+    """``_pad_rows``' inverse: drop the padded rows of a cotangent."""
+    if dw.shape[0] == rows:
+        return dw
+    return torch.cat([dw[:lead], dw[lead + dw.shape[0] - rows:]])
+
+
+class _Bf16Trunk(torch.autograd.Function):
+    """A trunk and its concatenated heads in a bf16 tier, forward and backward.
+
+    ``apply(x, t, tier, skips, depth, grad, *params)``: ``params`` are the
+    layers' ``w, b`` then the heads' ``w, b``, fp32; returns the heads' fp32
+    outputs side by side.  Operand ``i`` of layer ``i`` (the heads' is
+    operand ``depth``) is kept as bf16: operand 0 is ``[x | t]``, a skip
+    layer's ``[x | h]``, the others ``h``.  ``grad`` is whether autograd
+    records (it is off inside ``forward``): without it each operand is
+    freed once used.  On the card ``[x | t]`` and ``x`` are padded to a
+    multiple of 8 columns with zeros, and the weights with zero rows, so
+    every row starts 16-byte aligned; a zero term adds nothing.
+
+    Backward (see the module for the tiers): each hidden layer's cotangent
+    leaves ``ops.kernels.trunk.relu_mask_bf16`` as bf16, exact in "bfloat16"
+    (the cast's rounding) and rounded as the tier says in "bfloat16_bwd",
+    with its bias's cotangent summed in the same pass, so every product but
+    the heads' goes to the tensor cores.  The heads' incoming cotangent is
+    fp32 and, in "bfloat16", is not rounded: its two products are exact
+    (``_exact_heads``).  Weight cotangents, and those of ``x`` and ``t``, are
+    rounded to bf16 in "bfloat16", as at the casts.
+    """
 
     @staticmethod
-    def forward(ctx, x, w):
-        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        ctx.save_for_backward(xb, wb)
-        return xb.to(torch.float32) @ wb.to(torch.float32)
+    def forward(ctx, x, t, tier, skips, depth, grad, *params):
+        n, s = x.shape
+        pad = 8 if x.is_cuda else 1
+        sp = -(-s // pad) * pad  # where h starts in a skip layer's operand
+        fin = s + t.shape[1]
+        k0 = -(-fin // pad) * pad
+        ws, bs = params[0::2], params[1::2]
+        width = ws[0].shape[1]
+
+        a = x.new_empty((n, k0), dtype=_BF16)
+        a[:, :s] = x
+        a[:, s:fin] = t
+        a[:, fin:] = 0
+        keep = grad and any(ctx.needs_input_grad)
+        acts, wbs = [a], []
+        for i in range(depth + 1):
+            if i == depth:  # the heads, side by side
+                w, b = torch.cat(ws[depth:], dim=1), torch.cat(bs[depth:])
+            else:
+                w, b = ws[i], bs[i]
+            wb = _pad_rows(w.to(_BF16), a.shape[1], fin if i == 0 else s)
+            wbs.append(wb)
+            y = _mm(a, wb)
+            if i == depth:
+                y += b
+                break
+            if i in skips:
+                a = x.new_empty((n, sp + width), dtype=_BF16)
+                a[:, :s] = acts[0][:, :s]
+                a[:, s:sp] = 0
+                trunk_kernels.bias_relu_bf16(y, b, a[:, sp:])
+            else:
+                a = trunk_kernels.bias_relu_bf16(y, b, x.new_empty((n, width), dtype=_BF16))
+            del y
+            if keep:
+                acts.append(a)
+        if keep:
+            ctx.save_for_backward(*acts, *wbs)
+        ctx.meta = (tier, tuple(skips), depth, s, sp, fin,
+                    [w.shape[0] for w in ws[:depth + 1]], [w.shape[1] for w in ws[depth:]])
+        return y
 
     @staticmethod
-    def backward(ctx, g):
-        xb, wb = (t.to(torch.float32) for t in ctx.saved_tensors)
-        gb = g.to(torch.bfloat16).to(torch.float32)
-        return gb @ wb.t(), xb.t() @ gb
+    def backward(ctx, g_out):
+        tier, skips, depth, s, sp, fin, rows, head_dims = ctx.meta
+        acts, wbs = ctx.saved_tensors[:depth + 1], ctx.saved_tensors[depth + 1:]
+        rounds = tier == "bfloat16"
 
+        def rnd(v):  # the bf16 rounding of a cotangent at a cast ("bfloat16" only)
+            return v.to(_BF16).to(_F32) if rounds else v
 
-def _matmul(x: torch.Tensor, w: torch.Tensor, tier: str) -> torch.Tensor:
-    if tier == "bfloat16_bwd":
-        return _Bf16CotangentMatmul.apply(x, w)
-    if tier == "bfloat16":
-        x = x.to(torch.bfloat16).to(torch.float32)
-        w = w.to(torch.bfloat16).to(torch.float32)
-    return x @ w
+        g_out = g_out.contiguous()
+        if rounds:
+            dw, da = _exact_heads(acts[depth], wbs[depth], g_out)
+            dw = rnd(dw)
+        else:
+            gb = g_out.to(_BF16)
+            dw = _mm(acts[depth].t(), gb)
+            da = _mm(gb, wbs[depth].t())
+        dw = _unpad_rows(dw, rows[depth], s)
+        db = g_out.sum(0)
+        head_grads = []
+        for w, b in zip(dw.split(head_dims, dim=1), db.split(head_dims)):
+            head_grads += [w, b]
+
+        gx = None
+        layer_grads = []
+        for i in reversed(range(depth)):
+            out = acts[i + 1]  # layer i's output: [x | 0 | h] after a skip, else h
+            off = sp if i in skips else 0
+            if i in skips:
+                gx = rnd(da[:, :s]) if gx is None else gx + rnd(da[:, :s])
+            gb = out.new_empty((out.shape[0], out.shape[1] - off))
+            db = trunk_kernels.relu_mask_bf16(da[:, off:], out[:, off:], gb, rounded=rounds)
+            dw = _unpad_rows(rnd(_mm(acts[i].t(), gb)), rows[i], fin if i == 0 else s)
+            layer_grads = [dw, db, *layer_grads]
+            da = _mm(gb, wbs[i].t()) if i or any(ctx.needs_input_grad[:2]) else None
+        gt = None
+        if da is not None:
+            gx = rnd(da[:, :s]) if gx is None else rnd(da[:, :s]) + gx
+            gt = rnd(da[:, s:fin])
+        return (gx, gt, None, None, None, None, *layer_grads, *head_grads)
 
 
 def config_tier(cfg: DeformConfig) -> str:
@@ -192,14 +344,19 @@ class DeformMLP(nn.Module):
         """``tier``: "float32", "bfloat16" or "bfloat16_bwd" (see module)."""
         if tier not in ("float32", "bfloat16", "bfloat16_bwd"):
             raise ValueError(f"unknown tier {tier!r}")
+        if tier != "float32":
+            params = [p for m in (*self.layers, *self.heads) for p in (m.w, m.b)]
+            out = _Bf16Trunk.apply(x, t, tier, tuple(self.cfg.skips), len(self.layers),
+                                   torch.is_grad_enabled(), *params)
+            return tuple(torch.split(out, self.head_dims, dim=1))
         h = torch.cat([x, t], dim=-1)
         for i, layer in enumerate(self.layers):
-            h = torch.relu(layer(h, tier))
+            h = torch.relu(layer(h))
             if i in self.cfg.skips:
                 h = torch.cat([x, h], dim=-1)
         wcat = torch.cat([hd.w for hd in self.heads], dim=1)
         bcat = torch.cat([hd.b for hd in self.heads], dim=0)
-        out = _matmul(h, wcat, tier) + bcat
+        out = h @ wcat + bcat
         return tuple(torch.split(out, self.head_dims, dim=1))
 
     def param_tree(self) -> Dict[str, list]:

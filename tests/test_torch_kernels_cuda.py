@@ -23,6 +23,30 @@ kernel captured into a CUDA graph and replayed on new inputs, with eager
 calls between the replays: every result of the fills and the forward
 bitwise its plain version, of the backward bitwise the eager kernel's and
 at the gradient bar.
+
+The deformation trunk in the bf16 tiers (``models.deform._Bf16Trunk``,
+``ops/kernels/trunk.py``): its two epilogue kernels bitwise their plain
+versions; bf16 x bf16 products on the tensor cores with an fp32 result
+equal to the fp32 product of the upcast operands where every partial sum is
+exact (elsewhere the tensor cores sum in another order); the heads' exact
+split products within fp32 summation; and the whole trunk, forward and
+every gradient, against the same tier written layer by layer with fp32
+products of the rounded operands (``trunk_cases.layerwise``).  The two
+routes sum each product in another order (the tensor cores' fp32 sums
+differ from the CUDA cores' in the last bit of most elements), so some
+bf16 roundings of activations and cotangents flip by one step (2^-8
+relative).  In the forward a flip moves its row's later activations a
+little: the outputs within 2^-8 in L2 norm.  In the backward a flipped
+cotangent moves every element of its row's next cotangent by about 2^-12
+of a step's size, which flips more of them, so in a row that met one flip
+the two routes' cotangents soon differ by bf16 steps throughout; weight,
+bias and input gradients sum such rows with cancelling signs, and their
+own rounding to bf16 flips too: each gradient within 2^-5 in L2 norm.  The
+CPU tests hold the same function bitwise to the layer-by-layer graph.  The
+8 x 256 offset and SE(3) trunks through the tensor-core route are also held
+to the JAX package's "bfloat16" tier, forward and every gradient, at the
+CPU route's bars (``test_tensor_core_trunk_matches_jax``), against its
+result stored by ``tests/trunk_jax_reference.py``.
 """
 
 import numpy as np
@@ -30,16 +54,19 @@ import pytest
 import torch
 
 from gs_deformable_tpu_torch import config
+from gs_deformable_tpu_torch.models import deform as tdeform
 from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
 from gs_deformable_tpu_torch.models.gaussians import GaussianState
 from gs_deformable_tpu_torch.ops import binning as tbin
 from gs_deformable_tpu_torch.ops import projection, transforms
 from gs_deformable_tpu_torch.ops.kernels import composite as comp
 from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as of
+from gs_deformable_tpu_torch.ops.kernels import trunk as tk
 from gs_deformable_tpu_torch.ops.rasterize import prepare_tiles
 from gs_deformable_tpu_torch.renderer import CameraArrays, render
 
 import fill_cases
+import trunk_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -425,7 +452,8 @@ def test_render_card_matches_cpu(cuda):
         after = launch_counts()
         launched = {k: after[k] - before[k] for k in after}
         want = {"composite_forward": 1, "composite_backward": 0, "ordered_prefix_fill": 2,
-                "ordered_place_i32": 1}
+                "ordered_place_i32": 1, "trunk_bias_relu": 0,  # the fp32 tier: no trunk
+                "trunk_relu_mask": 0}
         assert launched == (want if dev.type == "cuda" else dict.fromkeys(want, 0))
         outs.append(out)
     g, c = outs
@@ -592,3 +620,200 @@ def test_composite_occupancy(cuda):
     occ = comp.occupancy()
     assert set(occ) == {"composite_forward", "composite_backward"}
     assert min(occ.values()) >= 1
+
+
+def _sums_close(sums, values):
+    """Column sums within fp32 summation (n x 2^-24 of the sum of the
+    magnitudes) of the float64 sums of ``values``."""
+    v = values.to(torch.float64)
+    bound = max(v.shape[0], 1) * 2.0 ** -24 * v.abs().sum(0)
+    assert sums.shape == (v.shape[1],)
+    assert bool(((sums.to(torch.float64) - v.sum(0)).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("rows,cols,ld,off", [(4096, 256, 256, 0), (3001, 256, 320, 64),
+                                               (1, 8, 8, 0), (0, 256, 256, 0)])
+def test_trunk_epilogues_bitwise(cuda, rows, cols, ld, off):
+    """Both epilogues bitwise their plain versions, into a slice of a wider
+    buffer too (the skip layer's operand); values straddling 0 and bf16
+    rounding ties included."""
+    g = torch.Generator(device=cuda).manual_seed(rows + ld)
+    y = torch.randn((rows, ld), device=cuda, generator=g)[:, off:off + cols]
+    y[::7] = torch.round(y[::7] * 256) / 256 + 2.0 ** -9  # ties to even
+    b = torch.randn((cols,), device=cuda, generator=g)
+    out = torch.full((rows, ld), 7.0, device=cuda, dtype=torch.bfloat16)
+    before = tk.bias_relu_bf16.launches
+    tk.bias_relu_bf16(y, b, out[:, off:off + cols])
+    torch.cuda.synchronize()
+    assert tk.bias_relu_bf16.launches == before + 1
+    assert torch.equal(out[:, off:off + cols], tk.bias_relu_plain(y, b))
+    assert bool((out[:, :off] == 7.0).all())  # nothing written outside the slice
+    a = out[:, off:off + cols]
+    dy = torch.randn((rows, ld), device=cuda, generator=g)[:, off:off + cols]
+    for rounded in (True, False):
+        got = torch.empty((rows, cols), device=cuda, dtype=torch.bfloat16)
+        before = tk.relu_mask_bf16.launches
+        sums = tk.relu_mask_bf16(dy, a, got, rounded)
+        torch.cuda.synchronize()
+        assert tk.relu_mask_bf16.launches == before + 1
+        ref, _ = tk.relu_mask_plain(dy, a, rounded)
+        assert torch.equal(got, ref)
+        _sums_close(sums, ref if rounded else torch.where(a > 0, dy, 0))
+    if rows > 1:
+        assert 0.2 < float((a > 0).float().mean()) < 0.8
+
+
+def test_tensor_core_product_sums_in_fp32(cuda):
+    """A K = 16 product of bf16 operands (``_mm``) equals the fp32 product of
+    the upcast operands.  Operands are small multiples of powers of two, so
+    every partial sum is exact in fp32 and the order of the sums cannot
+    matter; the results need more than bf16's 8 significant bits, so an
+    output rounded to bf16 would show."""
+    rng = np.random.default_rng(16)
+    a = torch.from_numpy(rng.integers(-127, 128, (4096, 16)) * 2.0 ** -6).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (16, 256)) * 2.0 ** -3).to(cuda)
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    got = tdeform._mm(a, b)
+    ref = a.to(torch.float32) @ b.to(torch.float32)
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert not torch.equal(ref, ref.to(torch.bfloat16).to(torch.float32))
+
+
+def test_exact_split_products(cuda):
+    """The heads' backward products of bf16 operands and an fp32 cotangent,
+    from its three-way bf16 split: the split is exact, and each product lies
+    within fp32 summation of the float64 product (2^-14 of the sum of the
+    terms' magnitudes; a product of the rounded cotangent alone is off by
+    2^-9)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((4096, 256), device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn((256, 58), device=cuda, generator=g).to(torch.bfloat16)
+    cot = torch.randn((4096, 58), device=cuda, generator=g) * 1e-3
+    split = tdeform._split3(cot, 64)
+    dw, da = tdeform._exact_heads(a, w, cot)
+    torch.cuda.synchronize()
+    assert split.dtype == torch.bfloat16 and split.shape == (4096, 192)
+    parts = split.to(torch.float64)
+    assert torch.equal((parts[:, :58] + parts[:, 64:122]) + parts[:, 128:186],
+                       cot.to(torch.float64))
+    assert not bool(parts[:, 58:64].any())  # padding columns are zeros
+    a64, w64, c64 = (t.to(torch.float64) for t in (a, w, cot))
+    for got, ref, mag in ((dw, a64.t() @ c64, a64.abs().t() @ c64.abs()),
+                          (da, c64 @ w64.t(), c64.abs() @ w64.abs().t())):
+        assert got.dtype == torch.float32
+        assert bool(((got.to(torch.float64) - ref).abs() <= 2.0 ** -14 * mag).all())
+
+
+def _trunk_close(got, ref, bar):
+    ref = ref.detach().to(torch.float64)
+    gap = float((got.detach().to(torch.float64) - ref).norm()) / float(ref.norm())
+    assert gap <= bar, (gap, bar)
+
+
+@pytest.mark.parametrize("kind,tier,rows", [("offset", "bfloat16", 4096),
+                                            ("offset", "bfloat16_bwd", 4096),
+                                            ("se3", "bfloat16", 4096),
+                                            ("offset", "bfloat16", 262144)])
+def test_bf16_trunk_against_layerwise(cuda, kind, tier, rows):
+    """The tensor-core trunk of the 8 x 256 nets against the same tier
+    written layer by layer on the card: heads and every gradient (weights,
+    biases, the trunk's inputs) at the bars of the module's docstring.  The
+    offset net's inputs are taken after the positional encoding: its 2^9
+    frequency multiplies one bf16 step of a feature's cotangent by up to
+    512, and the encoding is plain autograd outside the trunk."""
+    cfg = config.DeformConfig()
+    init = tdeform.init_offset_params if kind == "offset" else tdeform.init_se3_params
+    net = (tdeform.OffsetNet if kind == "offset" else tdeform.SE3Net)(init(3, cfg), cfg,
+                                                                      device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    xyz = torch.rand((rows, 3), device=cuda, generator=g) * 2.6 - 1.3
+    tcol = torch.full((rows, 1), 0.4, device=cuda)
+    if kind == "offset":
+        xyz, tcol = tdeform.posenc(xyz, cfg.multires_xyz), tdeform.posenc(tcol, cfg.multires_time)
+    xyz.requires_grad_(True)
+    tcol.requires_grad_(True)
+    params = list(net.parameters())
+    cots = None
+    res = []
+    for fn in (lambda: tdeform.DeformMLP.forward(net, xyz, tcol, tier),
+               lambda: trunk_cases.layerwise(net, xyz, tcol, tier)):
+        out = fn()
+        if cots is None:
+            cots = [torch.randn(o.shape, device=cuda, generator=g) for o in out]
+        loss = sum((o * c).sum() for o, c in zip(out, cots))
+        res.append((out, torch.autograd.grad(loss, [xyz, tcol, *params])))
+    torch.cuda.synchronize()
+    (got, got_g), (ref, ref_g) = res
+    for a, b in zip(got, ref):
+        _trunk_close(a, b, 2.0 ** -8)
+    for a, b in zip(got_g, ref_g):
+        assert a.shape == b.shape
+        _trunk_close(a, b, 2.0 ** -5)
+
+
+def trunk_gaps_to_jax(kind, device):
+    """L2 gaps of the tensor-core trunk's outputs and of the gradients of
+    ``[x, t, *weights]`` to the JAX package's "bfloat16" tier
+    (``trunk_cases.load_jax_reference``) on ``trunk_cases.full_width_case``."""
+    params, x, t, cot = trunk_cases.full_width_case(kind)
+    cls = tdeform.OffsetNet if kind == "offset" else tdeform.SE3Net
+    net = cls(params, config.DeformConfig(), device=device)
+    x, t = (torch.from_numpy(a).to(device).requires_grad_(True) for a in (x, t))
+    out = torch.cat(tdeform.DeformMLP.forward(net, x, t, "bfloat16"), dim=1)
+    weights = [p for m in (*net.layers, *net.heads) for p in (m.w, m.b)]
+    grads = torch.autograd.grad((out * torch.from_numpy(cot).to(device)).sum(),
+                                [x, t, *weights])
+    ref_out, ref_grads = trunk_cases.load_jax_reference(kind)
+    assert len(grads) == len(ref_grads)
+
+    def gap(got, ref):
+        ref = torch.from_numpy(ref).to(torch.float64)
+        assert got.shape == ref.shape
+        return float((got.detach().cpu().to(torch.float64) - ref).norm() / ref.norm())
+
+    return gap(out, ref_out), [gap(g, r) for g, r in zip(grads, ref_grads)]
+
+
+@pytest.mark.parametrize("kind", trunk_cases.KINDS)
+def test_tensor_core_trunk_matches_jax(cuda, kind):
+    """The 8 x 256 offset and SE(3) trunks at 4,096 rows through the
+    tensor-core route against the JAX package's "bfloat16" tier, computed on
+    the CPU from the same weights, inputs and cotangents and stored
+    (``tests/trunk_jax_reference.py``): the outputs, and the gradients of
+    every weight, bias and trunk input, within the bars of the CPU route
+    (``test_torch_deform.py``): 2^-10 and 2^-5 in L2 norm.  Readings on an
+    H100: outputs 3.63e-4 (offset) and 4.06e-4 (SE(3)), gradients up to
+    6.52e-3 and 1.00e-2 (the CPU route reads 2.2e-4 and up to 7.0e-3)."""
+    out_gap, grad_gaps = trunk_gaps_to_jax(kind, cuda)
+    assert out_gap <= 2.0 ** -10, out_gap
+    assert max(grad_gaps) <= 2.0 ** -5, grad_gaps
+
+
+def test_trunk_epilogues_replay_in_a_cuda_graph(cuda):
+    """The epilogues captured into one CUDA graph and replayed on new inputs,
+    each replay bitwise their plain versions (the backward's column sums
+    within fp32 summation)."""
+    rows, cols = 5000, 256
+    g = torch.Generator(device=cuda).manual_seed(11)
+    y, dy = (torch.empty((rows, cols), device=cuda) for _ in range(2))
+    b = torch.empty((cols,), device=cuda)
+    a = torch.empty((rows, cols), device=cuda, dtype=torch.bfloat16)
+    gb = torch.empty_like(a)
+    for t in (y, dy, b):  # a first call outside the capture builds and loads the library
+        t.normal_(generator=g)
+    tk.bias_relu_bf16(y, b, a)
+    tk.relu_mask_bf16(dy, a, gb, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tk.bias_relu_bf16(y, b, a)
+        sums = tk.relu_mask_bf16(dy, a, gb, True)
+    for _ in range(3):
+        for t in (y, dy, b):
+            t.normal_(generator=g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, tk.bias_relu_plain(y, b))
+        ref, _ = tk.relu_mask_plain(dy, a, True)
+        assert torch.equal(gb, ref)
+        _sums_close(sums, ref)
