@@ -12,8 +12,8 @@ Phases (any failure raises and the script exits non-zero):
    gaussians in capacity 131,072, SH degree 3, the 8x256 offset net from a
    seeded numpy init, bf16 tier) rendered at 1920x1080 for 6 frames at
    different times, past the warmup.  Launch counters are zeroed just before
-   and read just after; each frame must launch the composite once, the
-   prefix fill twice and the place once;
+   and read just after; each frame must launch the tile cull once, the
+   composite once, the prefix fill twice and the place once;
 4. each kernel against its plain PyTorch version on the card at the shapes
    of that path (ordered fill: bitwise; composite, on the real binning of
    the phase-3 scene: bitwise, and the plain version bitwise the same with
@@ -114,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
    on the card, 4,096 random rows against a float64 brute force on the CPU
    (rtol 1e-4, atol 1e-6 x max|x|^2); the kernels on the inputs their
    wrappers received inside the run (``recorded_frames``), the first
-   step's and the first eval view's: each ordered fill bitwise, the
+   step's and the first eval view's: the tile cull bitwise the plain loop
+   on the same tensors (and timed against it), each ordered fill bitwise, the
    composite forward bitwise, the backward at the phase-7 bars on the
    step's own forward output and upstream gradient; ``densify_and_prune`` on the card against its CPU
    run on the same state and normals (alive, counts and moments equal,
@@ -261,6 +262,17 @@ Phases (any failure raises and the script exits non-zero):
    launches the forward epilogue once a hidden layer a frame or step, the
    backward one once a hidden layer a step (checked exactly in phases 3,
    5, 6, 8, 9 and 14).
+18. the tile cull (``ops/kernels/tile_cull.py``, ``csrc/tile_cull.cu``) on
+   the render path's screen-space arrays of phase 3's scene recipe with
+   100,000 gaussians in 262,144 rows and 400,000 in 1,048,576 (the
+   benchmark's capacities), at 1920x1080 and 800x800: ``mask_code`` and
+   ``new_tiles`` bitwise the plain loop (``projection.
+   tile_ellipse_mask_plain``) on the same CUDA tensors; the kernel's and
+   the loop's median times (CUDA events, L2 flushed), their host time to
+   enqueue a call, and the least time at 3.35 TB/s (52 B a row).  Its
+   launches (one a frame and a step) are checked exactly wherever the
+   composite's are, and in phases 11, 12, 14 and 15 it is held bitwise on
+   the inputs recorded inside the runs.
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
@@ -305,7 +317,8 @@ ITERATION = 10_000
 PROFILE = "--profile" in sys.argv[1:]
 NTILES = ((W + 15) // 16) * ((H + 15) // 16)
 
-RENDER_LAUNCHES = {"composite_forward": 1, "ordered_prefix_fill": 2, "ordered_place_i32": 1}
+RENDER_LAUNCHES = {"tile_cull": 1, "composite_forward": 1, "ordered_prefix_fill": 2,
+                   "ordered_place_i32": 1}
 STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1)
 PACKED_SUB = 32  # bench.py:251 takes RasterizeConfig's default sub_chunk
 CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
@@ -318,6 +331,11 @@ TRUNK_ROWS, TRUNK_WIDTH, TRUNK_SKIP = (1 << 20, 1 << 18), 256, 64
 TRUNK_HEADS, TRUNK_HEAD_COLS = 58, 64
 TRAIN_TILES = (TRAIN_W // 16) * (TRAIN_H // 16)
 TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
+# Phase 18: the tile cull over the capacities of the benchmark's 100k and
+# 400k scenes (gaussians in front), at the render and train sizes; a row
+# reads its centre, conic, opacity, rect and tile count and writes two int32.
+CULL_ROWS, CULL_SHAPES = ((1 << 18, 100_000), (1 << 20, 400_000)), ((W, H), (TRAIN_W, TRAIN_H))
+CULL_ROW_BYTES = 8 + 12 + 4 + 16 + 4 + 8
 LEARN_ICAP = 512 * 1024
 TRAIN_ITERATION = 5000  # past the 3000-iteration warmup
 TRAIN_STEPS = 6  # timed, after one warm-up step
@@ -915,6 +933,52 @@ def same_input_raster_check(torch, screen, w, h, cfg):
             raise AssertionError(f"same-input raster: {name} differs card vs CPU")
     return {"image_max_abs_err": float((g[0].cpu() - c[0]).abs().max()),
             "final_t_max_abs_err": float((g[1].cpu() - c[1]).abs().max())}
+
+
+def cull_same(torch, label, args, kw):
+    """The tile cull kernel on one call's inputs bitwise the plain loop on
+    the same tensors: (mask_code, new_tiles)."""
+    from gs_deformable_tpu_torch.ops import projection
+    from gs_deformable_tpu_torch.ops.kernels import tile_cull as tc
+
+    got = tc.tile_cull(*args, **kw)
+    ref = projection.tile_ellipse_mask_plain(*args, **kw)
+    for name, g, r in zip(("mask_code", "new_tiles"), got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{label}: tile_cull's {name} differs from the plain loop in "
+                                 f"{int((g != r).sum())} of {g.numel()} rows")
+    return got
+
+
+def cull_record(torch, timer, label, args, kw, host=False):
+    """``cull_same``, then the kernel's and the plain loop's median times
+    (CUDA events), the least time at 3.35 TB/s (CULL_ROW_BYTES a row) and,
+    with ``host``, each one's host time to enqueue a call."""
+    from gs_deformable_tpu_torch.ops import projection
+    from gs_deformable_tpu_torch.ops.kernels import tile_cull as tc
+
+    mask, _ = cull_same(torch, label, args, kw)
+    n = args[0].shape[0]
+
+    def kernel():
+        return tc.tile_cull(*args, **kw)
+
+    def plain():
+        return projection.tile_ellipse_mask_plain(*args, **kw)
+
+    rec = {"label": label, "n": n, "rows": int((args[4] > 0).sum()),
+           "masked_rows": int(((mask >> 16) & 1).sum()), "bitwise_equal_plain": True,
+           "max_abs_err": 0.0, "ms": timer.ms(kernel, 20), "plain_ms": timer.ms(plain, 5),
+           "bound_ms": bytes_ms(n * CULL_ROW_BYTES), "bound_by": "bytes"}
+    if host:
+        rec["host_us"] = host_us(torch, kernel)
+        rec["plain_host_us"] = host_us(torch, plain, calls=5, batches=3)
+    log(f"  tile_cull {label} ({n} rows, {rec['rows']} touching a tile, {rec['masked_rows']} "
+        f"masked): kernel {rec['ms']:.4f} ms  plain loop {rec['plain_ms']:.4f}  bound "
+        f"{rec['bound_ms']:.4f}" + (f"; host {rec['host_us']:.1f} us a call against "
+                                    f"{rec['plain_host_us']:.1f}" if host else "")
+        + "; bitwise equal")
+    return rec
 
 
 def knife_edge_close(got, ref, *, atol, knife, rtol=1e-4, max_frac=1e-3):
@@ -1612,12 +1676,14 @@ def check_densify_card_vs_cpu(torch, ts, normals, kw):
     return {k: int(v) for k, v in cpu[3]._asdict().items()}, worst
 
 
-def scene_kernel_checks(torch, timer, frame, cfg, label, backward, upstream=None):
+def scene_kernel_checks(torch, timer, frame, cfg, label, backward, upstream=None, cull=None):
     """Phase 11's and 12's kernels against their plain versions on one
-    frame's own inputs: each recorded ordered fill bitwise, the composite
-    forward bitwise and, for a train frame, the backward at the phase-7 bars
-    (on the recorded ``upstream`` where given, see ``check_backward``)."""
+    frame's own inputs: the recorded tile cull (``cull``: its (args,
+    kwargs)) and each recorded ordered fill bitwise, the composite forward
+    bitwise and, for a train frame, the backward at the phase-7 bars (on the
+    recorded ``upstream`` where given, see ``check_backward``)."""
     splats_t, binning, gx, fills = frame
+    culled = None if cull is None else cull_record(torch, timer, label, *cull)
     recs = []
     for i, (name, pos, x, K) in enumerate(fills):
         what = f"{label} call {i}"
@@ -1628,7 +1694,7 @@ def scene_kernel_checks(torch, timer, frame, cfg, label, backward, upstream=None
         comp = check_backward(torch, timer, splats_t, binning, gx, cfg, label, upstream)
     else:
         comp = check_composite(torch, timer, splats_t, binning, gx, cfg, label)
-    return {"fills": recs, "composite": comp}
+    return {"cull": culled, "fills": recs, "composite": comp}
 
 
 def knn_rows_cpu(torch, pts, rows, chunk=64):
@@ -1812,7 +1878,7 @@ def scene_phase(torch, timer, root):
     want = {"composite_forward": SCENE_STEPS + SCENE_GROWN_STEPS + SCENE_TEST + 2,
             "composite_backward": SCENE_STEPS + SCENE_GROWN_STEPS}
     want["ordered_prefix_fill"] = 2 * want["composite_forward"]
-    want["ordered_place_i32"] = want["composite_forward"]
+    want["ordered_place_i32"] = want["tile_cull"] = want["composite_forward"]
     if raster_launches(counts) != want:
         raise AssertionError(f"scene path launches {counts}, expected {want}")
     times["ms_per_step"] = float(np.median(step_ms))
@@ -1847,18 +1913,21 @@ def recorded_frames(torch, frames):
     each wrapper received them, and the backward of each such forward (the
     call that receives the forward's own splats).  The wrappers are swapped
     where the path looks them up, and put back after.  Yields {"calls":
-    {wrapper: calls seen}, "frames": {frame: {"fills": [(name, pos, second
-    argument, K)], "composite_forward": (args, kwargs) or None,
-    "composite_backward": likewise}}}."""
+    {wrapper: calls seen}, "frames": {frame: {"tile_cull": (args, kwargs) or
+    None, "fills": [(name, pos, second argument, K)], "composite_forward":
+    (args, kwargs) or None, "composite_backward": likewise}}}: a frame's
+    tile cull comes before its fills."""
     from gs_deformable_tpu_torch.ops import binning as binning_mod
     from gs_deformable_tpu_torch.ops.kernels import composite as comp_mod
+    from gs_deformable_tpu_torch.ops.kernels import tile_cull as cull_mod
 
     fills_per_frame = {"ordered_prefix_fill": 2, "ordered_place_i32": 1}
-    home = {"ordered_prefix_fill": binning_mod, "ordered_place_i32": binning_mod,
-            "composite_forward": comp_mod, "composite_backward": comp_mod}
+    home = {"tile_cull": cull_mod, "ordered_prefix_fill": binning_mod,
+            "ordered_place_i32": binning_mod, "composite_forward": comp_mod,
+            "composite_backward": comp_mod}
     rec = {"calls": dict.fromkeys(home, 0),
-           "frames": {f: {"fills": [], "composite_forward": None, "composite_backward": None,
-                          "splats": None} for f in frames}}
+           "frames": {f: {"tile_cull": None, "fills": [], "composite_forward": None,
+                          "composite_backward": None, "splats": None} for f in frames}}
     saved = {name: getattr(mod, name) for name, mod in home.items()}
 
     class Kept:
@@ -1883,7 +1952,11 @@ def recorded_frames(torch, frames):
             def clone():
                 return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
-            if name in fills_per_frame:
+            if name == "tile_cull":
+                f = rec["frames"].get(k)
+                if f is not None:
+                    f[name] = (clone(), dict(kw))
+            elif name in fills_per_frame:
                 f = rec["frames"].get(k // fills_per_frame[name])
                 if f is not None:
                     f["fills"].append((name, *clone()))
@@ -1916,10 +1989,11 @@ def recorded_checks(torch, timer, rec, frame, counts, cfg, label, backward):
         raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
     f = rec["frames"][frame]
     names = [x[0] for x in f["fills"]]
-    if f["composite_forward"] is None or sorted(names) != (
+    if f["composite_forward"] is None or f["tile_cull"] is None or sorted(names) != (
             ["ordered_place_i32"] + ["ordered_prefix_fill"] * 2):
-        raise AssertionError(f"{label}: recorded fills {names} and forward "
-                             f"{f['composite_forward'] is not None}")
+        raise AssertionError(f"{label}: recorded fills {names}, forward "
+                             f"{f['composite_forward'] is not None}, tile cull "
+                             f"{f['tile_cull'] is not None}")
     (splats_t, start, count), kw = f["composite_forward"]
     if kw != dict(grid_x=kw["grid_x"], **composite_kw(cfg)):
         raise AssertionError(f"{label}: the composite ran with {kw}, the config gives "
@@ -1935,7 +2009,7 @@ def recorded_checks(torch, timer, rec, frame, counts, cfg, label, backward):
         upstream = (fwd_out, grad)
     binning = types.SimpleNamespace(tile_chunk_start=start, tile_count=count)
     return scene_kernel_checks(torch, timer, (splats_t, binning, kw["grid_x"], f["fills"]),
-                               cfg, label, backward, upstream)
+                               cfg, label, backward, upstream, cull=f["tile_cull"])
 
 
 def loss_by_iteration(timeline):
@@ -2100,7 +2174,7 @@ def cli_phase(torch, timer, root):
     report_views = min(SCENE_TEST, 20) + min(SCENE_TRAIN, 5)
     want = {"composite_forward": last + report_views, "composite_backward": last}
     want["ordered_prefix_fill"] = 2 * want["composite_forward"]
-    want["ordered_place_i32"] = want["composite_forward"]
+    want["ordered_place_i32"] = want["tile_cull"] = want["composite_forward"]
     log(f"  trained {last} iterations in {train_s:.1f} s; the viewer's socket "
         f"{'bound' if viewer_bound else 'did not bind'}; launches {counts}")
     if raster_launches(counts) != want:
@@ -2160,7 +2234,7 @@ def cli_phase(torch, timer, root):
     rcounts = launch_counts()
     views = SCENE_TRAIN + SCENE_TEST
     rwant = {"composite_forward": views, "composite_backward": 0,
-             "ordered_prefix_fill": 2 * views, "ordered_place_i32": views}
+             "ordered_prefix_fill": 2 * views, "ordered_place_i32": views, "tile_cull": views}
     if raster_launches(rcounts) != rwant:
         raise AssertionError(f"render CLI launches {rcounts}, expected {rwant}")
     test_dir = os.path.join(model, "test", f"ours_{last}")
@@ -2495,8 +2569,10 @@ def band_frame_check(torch, rec, frame, counts, cfg, label):
     if rec["calls"] != raster_launches(counts):
         raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
     f = rec["frames"][frame]
-    if f["composite_forward"] is None or f["composite_backward"] is None or len(f["fills"]) != 3:
+    if (f["composite_forward"] is None or f["composite_backward"] is None
+            or f["tile_cull"] is None or len(f["fills"]) != 3):
         raise AssertionError(f"{label}: the frame was not recorded whole")
+    cull_same(torch, label, *f["tile_cull"])
     for name, pos, x, k in f["fills"]:
         got = (of.ordered_prefix_fill(pos, x, k) if name == "ordered_prefix_fill"
                else of.ordered_place_i32(pos, x, k))
@@ -3287,7 +3363,8 @@ def quality_phase(torch, timer, root, iters=QUALITY_ITERS, warmup=QUALITY_WARMUP
             ("trainer", counts, iters + report_views * len(tests), iters),
             ("render CLI", run["render_launches"], QUALITY_TRAIN + QUALITY_TEST, 0)):
         want = {"composite_forward": forward, "composite_backward": backward,
-                "ordered_prefix_fill": 2 * forward, "ordered_place_i32": forward}
+                "ordered_prefix_fill": 2 * forward, "ordered_place_i32": forward,
+                "tile_cull": forward}
         if raster_launches(got) != want:
             raise AssertionError(f"{what} launches {got}, expected {want}")
     if not checks:
@@ -3630,6 +3707,29 @@ def trunk_phase(torch, timer):
     return {"calls": calls, "heads_split": split}
 
 
+def cull_phase(torch, timer):
+    """Phase 18: the tile cull on the render path's own screen-space arrays
+    at the main path's shapes, bitwise the plain loop, timed (device and
+    host) against it."""
+    from gs_deformable_tpu_torch import config
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+
+    cfg = render_cfg(config)
+    net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
+    calls = []
+    for cap, n in CULL_ROWS:
+        state = scene(torch, n, cap)
+        for w, h in CULL_SHAPES:
+            cam, tanx, tany = camera(w, h, 0.3, "cuda")
+            means, _, conics, opac, _, rect, tt = screen_arrays(torch, state, net, cam, tanx,
+                                                                tany, cfg, w, h)
+            calls.append(cull_record(torch, timer, f"{w}x{h}, {n} of {cap} rows",
+                                     (means, conics, opac, rect, tt),
+                                     dict(tile_x=16, tile_y=16), host=True))
+        del state
+    return {"calls": calls}
+
+
 def main():
     import torch
 
@@ -3792,6 +3892,10 @@ def main():
     log(f"  {card}")
     trunk_rec = trunk_phase(torch, timer)
 
+    phase("phase 18: the tile cull at the main path's shapes")
+    log(f"  {card}")
+    cull_rec = cull_phase(torch, timer)
+
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
@@ -3851,6 +3955,16 @@ def main():
             "launches_quality": quality_rec["run"]["launches"][name], "max_abs_err": 0.0,
             **{k: calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "calls": calls})
+    # Phase 18: the tile cull (no TPU counterpart: XLA fuses the loop); the
+    # first call is the viewer cell's shape, 1080p over 262,144 rows.
+    cull_calls = cull_rec["calls"]
+    kernels.append({
+        "name": "tile_cull", "route": "cuda", "source": "gs_deformable_tpu_torch/csrc/tile_cull.cu",
+        "replaces": None, "launches": train_counts["tile_cull"],
+        "launches_render": counts["tile_cull"], "launches_chunked": chunk_counts["tile_cull"],
+        "launches_cli": cli_rec["launches"]["tile_cull"], "max_abs_err": 0.0,
+        **{k: cull_calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "calls": cull_calls})
     # The band frames that phase 14's ranks recorded inside their sharded
     # runs, each rank's one frame held against the plain versions, and the
     # launches of each rank's 10 steps.
@@ -3869,6 +3983,7 @@ def main():
     qc, dense = quality_rec["kernel_checks"], quality_rec["dense"]
     comp = qc["composite"]
     quality_step = {
+        "tile_cull": qc["cull"],
         "composite_forward": {"shape": comp["shape"], "instances": comp["instances"],
                               "ms": comp["forward_ms"], "bitwise_equal_plain": True},
         "composite_backward": {k: comp[k] for k in (
@@ -3903,7 +4018,7 @@ def main():
         "reduced": reduced, "train": train, "learning": learning,
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
-        "quality": quality_rec, "graph": graph_rec, "trunk": trunk_rec,
+        "quality": quality_rec, "graph": graph_rec, "trunk": trunk_rec, "cull": cull_rec,
         "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }

@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .kernels import tile_cull as _tile_cull
+
 NEAR_Z = 0.2
 W_EPS = 1e-7
 LOWPASS = 0.3
@@ -67,8 +69,18 @@ def tile_ellipse_mask(means2d_pix, conics, opacities, rect, tiles_touched, *,
 
     Returns (mask_code, new_tiles_touched): ``mask_code`` (P,) int32 has bit
     16 set where the mask applies and bits 0..15 flag the surviving rect
-    slots (slot i = tile (x0 + i mod w, y0 + i div w)).
+    slots (slot i = tile (x0 + i mod w, y0 + i div w)).  CPU tensors take
+    the loop ``tile_ellipse_mask_plain``; CUDA tensors one launch of
+    ``ops/kernels/tile_cull.py``, bitwise that loop on the card.
     """
+    return _tile_cull.tile_cull(means2d_pix, conics, opacities, rect, tiles_touched,
+                                tile_x=tile_x, tile_y=tile_y, max_bits=max_bits, slack=slack)
+
+
+def tile_ellipse_mask_plain(means2d_pix, conics, opacities, rect, tiles_touched, *,
+                            tile_x: int, tile_y: int, max_bits: int = 16,
+                            slack: float = 0.02):
+    """``tile_ellipse_mask`` as a loop of elementwise ops, on any device."""
     if max_bits > 16:
         raise ValueError("max_bits must be <= 16")
     op = opacities[:, 0] if opacities.dim() == 2 else opacities

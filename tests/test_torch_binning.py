@@ -119,6 +119,34 @@ def test_tile_ellipse_mask_bitwise():
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def test_tile_cull_on_cpu_tensors_runs_the_plain_loop(monkeypatch):
+    """CPU tensors take the loop itself: no kernel library is loaded, nothing
+    is launched, and strided or (P, 1) inputs give the loop's own result."""
+    from gs_deformable_tpu_torch.ops import projection as tproj
+    from gs_deformable_tpu_torch.ops.kernels import launch_counts
+    from gs_deformable_tpu_torch.ops.kernels import tile_cull as tcull
+
+    def no_library():
+        raise AssertionError("a CPU call loaded the kernel library")
+
+    monkeypatch.setattr(tcull, "_lib", no_library)
+    pre, opac = screen_inputs(6)
+    args = [torch.from_numpy(np.array(a)) for a in (
+        pre.means2d_pix, pre.conics, opac, pre.rect, pre.tiles_touched)]
+    before = launch_counts()
+    got = tile_ellipse_mask(*args, tile_x=16, tile_y=16)
+    ref = tproj.tile_ellipse_mask_plain(*args, tile_x=16, tile_y=16)
+    wide = torch.cat([args[0], args[1], args[2][:, None]], 1)
+    strided = tile_ellipse_mask(wide[:, 0:2], wide[:, 2:5], wide[:, 5:6], *args[3:],
+                                tile_x=16, tile_y=16)
+    assert launch_counts() == before
+    for a, b, c in zip(got, ref, strided):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert 0 < int(((got[0] >> 16) & 1).sum()) <= int((args[4] > 0).sum())
+    with pytest.raises(ValueError, match="max_bits"):
+        tile_ellipse_mask(*args, tile_x=16, tile_y=16, max_bits=17)
+
+
 @pytest.mark.parametrize("grid", [(7, 5), (100, 90)])
 def test_binning_rect_code_widths_bitwise(grid):
     # (100, 90) has >= 2^13 tiles: the 30-bit rect code the JAX fill splits

@@ -47,6 +47,14 @@ CPU tests hold the same function bitwise to the layer-by-layer graph.  The
 to the JAX package's "bfloat16" tier, forward and every gradient, at the
 CPU route's bars (``test_tensor_core_trunk_matches_jax``), against its
 result stored by ``tests/trunk_jax_reference.py``.
+
+The tile cull (``ops/kernels/tile_cull.py``): ``mask_code`` and
+``new_tiles`` bitwise the plain loop (``projection.tile_ellipse_mask_plain``)
+run on the same CUDA tensors, on screen scenes, at the main path's shapes,
+on adversarial rows (edge tile counts, rects at the grid's edge, zero,
+negative, infinite and NaN conics and centres, knife-edge opacities, centres
+on tile borders, strided inputs), in a CUDA graph, and with its counters
+under the profiler; one launch a call.
 """
 
 import numpy as np
@@ -56,11 +64,13 @@ import torch
 from gs_deformable_tpu_torch import config
 from gs_deformable_tpu_torch.models import deform as tdeform
 from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+from gs_deformable_tpu_torch import tracing
 from gs_deformable_tpu_torch.models.gaussians import GaussianState
 from gs_deformable_tpu_torch.ops import binning as tbin
 from gs_deformable_tpu_torch.ops import projection, transforms
 from gs_deformable_tpu_torch.ops.kernels import composite as comp
 from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as of
+from gs_deformable_tpu_torch.ops.kernels import tile_cull as tc
 from gs_deformable_tpu_torch.ops.kernels import trunk as tk
 from gs_deformable_tpu_torch.ops.rasterize import prepare_tiles
 from gs_deformable_tpu_torch.renderer import CameraArrays, render
@@ -453,7 +463,7 @@ def test_render_card_matches_cpu(cuda):
         launched = {k: after[k] - before[k] for k in after}
         want = {"composite_forward": 1, "composite_backward": 0, "ordered_prefix_fill": 2,
                 "ordered_place_i32": 1, "trunk_bias_relu": 0,  # the fp32 tier: no trunk
-                "trunk_relu_mask": 0}
+                "trunk_relu_mask": 0, "tile_cull": 1}
         assert launched == (want if dev.type == "cuda" else dict.fromkeys(want, 0))
         outs.append(out)
     g, c = outs
@@ -817,3 +827,155 @@ def test_trunk_epilogues_replay_in_a_cuda_graph(cuda):
         ref, _ = tk.relu_mask_plain(dy, a, True)
         assert torch.equal(gb, ref)
         _sums_close(sums, ref)
+
+
+CULL = dict(tile_x=16, tile_y=16)
+
+
+def _cull_same(args, what=""):
+    """One kernel launch against the plain loop on the same CUDA tensors."""
+    before = launch_counts()["tile_cull"]
+    got = projection.tile_ellipse_mask(*args, **CULL)
+    assert launch_counts()["tile_cull"] == before + 1
+    ref = projection.tile_ellipse_mask_plain(*args, **CULL)
+    for name, g, r in zip(("mask_code", "new_tiles"), got, ref):
+        assert g.dtype == torch.int32 and torch.equal(g, r), f"{what} {name}"
+    return ref
+
+
+def _cull_rows(seed, n, W, H, alive, device):
+    """The cull's inputs for ``n`` capacity rows of which the first ``alive``
+    live, splats sized so that some rects hold 16 tiles or fewer and some
+    more, opacities down to 1/255."""
+    rng = np.random.default_rng(seed)
+    fovx = 0.9
+    fovy = 2 * np.arctan(np.tan(fovx / 2) * H / W)
+    view = np.eye(4, dtype=np.float32)
+    full = view @ transforms.projection_matrix(0.01, 100.0, fovx, fovy)
+    means = np.stack([rng.uniform(-2.0, 2.0, n), rng.uniform(-1.4, 1.4, n),
+                      rng.uniform(2.5, 9.0, n)], -1).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    s = np.exp(rng.normal(size=(n, 3)) * 0.6 - 4.0).astype(np.float32)
+    opac = rng.uniform(1 / 255, 1.0, n).astype(np.float32)
+    t = {k: torch.from_numpy(v).to(device) for k, v in
+         dict(means=means, q=q, s=s, opac=opac, view=view, full=full).items()}
+    pre = projection.preprocess(t["means"], transforms.build_cov3d(t["s"], t["q"]), t["view"],
+                                t["full"], width=W, height=H, tan_fovx=float(np.tan(fovx / 2)),
+                                tan_fovy=float(np.tan(fovy / 2)),
+                                alive=torch.arange(n, device=device) < alive,
+                                opacities=t["opac"])
+    return pre.means2d_pix, pre.conics, t["opac"], pre.rect, pre.tiles_touched
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("seed,n,W,H", [(3, 1500, 160, 96), (4, 3000, 320, 176),
+                                        (5, 20000, 160, 96)])
+def test_tile_cull_bitwise_on_screen_scenes(cuda, seed, n, W, H, opaque):
+    means, _, conics, opac, _, rect, tt = _screen(seed + opaque, n, W, H, opaque, cuda)
+    mask, _ = _cull_same((means, conics, opac, rect, tt))
+    assert int(((mask >> 16) & 1).sum()) > 0
+
+
+@pytest.mark.parametrize("W,H", [(1920, 1080), (800, 800)], ids=["1080p", "800x800"])
+@pytest.mark.parametrize("n,alive", [(1 << 18, 100_000), (1 << 20, 400_000)],
+                         ids=["262144", "1048576"])
+def test_tile_cull_bitwise_at_main_path_shapes(cuda, W, H, n, alive):
+    args = _cull_rows(7, n, W, H, alive, cuda)
+    mask, tiles = _cull_same(args, f"{W}x{H}, {n} rows")
+    masked = int(((mask >> 16) & 1).sum())
+    assert 0.2 * alive < masked < int((args[4] > 0).sum())
+    assert int(tiles.sum()) < int(args[4].sum())
+
+
+def _cull_adversarial(seed, n=4099, grid=(20, 12)):
+    """Rows at the cull's edges, as CPU tensors: tiles_touched 0, 1, 16 and
+    17 (also against rects of other sizes); rects 1 and 16 tiles wide ending
+    on the grid's last column; zero, negative, infinite and NaN conic
+    entries; opacities 0, 1/255 and 1; centres on tile borders and at
+    infinity or NaN.  ``n`` is no multiple of a block."""
+    rng = np.random.default_rng(seed)
+    gx, gy = grid
+    x0, y0 = rng.integers(0, gx, n), rng.integers(0, gy, n)
+    x1 = np.minimum(x0 + rng.choice([1, 2, 3, 4, 16], n), gx)
+    y1 = np.minimum(y0 + rng.choice([1, 2, 3, 4], n), gy)
+    edge = rng.random(n) < 0.15
+    x1[edge] = gx
+    x0[edge] = gx - rng.choice([1, 16], int(edge.sum()))
+    tt = (x1 - x0) * (y1 - y0)
+    odd = rng.random(n) < 0.2
+    tt[odd] = rng.choice([0, 1, 16, 17], int(odd.sum()))
+    px = (x0 + rng.uniform(-1.0, (x1 - x0) + 1.0)) * 16
+    py = (y0 + rng.uniform(-1.0, (y1 - y0) + 1.0)) * 16
+    border = rng.random(n) < 0.3  # on a tile's first or last pixel, or between two
+    px[border] = (x0[border] + rng.integers(0, 3, int(border.sum()))) * 16 + rng.choice(
+        [0.0, 15.0, 15.5, -0.5], int(border.sum()))
+    py[border] = y0[border] * 16 + rng.choice([0.0, 15.0, 16.0], int(border.sum()))
+    means = np.stack([px, py], -1).astype(np.float32)
+    bad = rng.random(n) < 0.02
+    means[bad, rng.integers(0, 2, int(bad.sum()))] = rng.choice([np.inf, -np.inf, np.nan],
+                                                                  int(bad.sum()))
+    sx, sy = rng.uniform(2.0, 40.0, n), rng.uniform(2.0, 40.0, n)
+    rho = rng.uniform(-0.95, 0.95, n)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    conics = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det], -1)
+    conics = conics.astype(np.float32)
+    for col in range(3):
+        hit = rng.random(n) < 0.03
+        conics[hit, col] = rng.choice([0.0, -0.0, -1e-3, np.inf, -np.inf, np.nan],
+                                      int(hit.sum()))
+    zero_b = rng.random(n) < 0.1
+    conics[zero_b, 1] = 0.0
+    opac = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    edge_op = rng.random(n) < 0.3
+    knife = np.float32(1 / 255)
+    opac[edge_op] = rng.choice(np.array([0.0, knife, 1.0, np.nextafter(knife, np.float32(1))],
+                                        np.float32), int(edge_op.sum()))
+    rect = np.stack([x0, y0, x1, y1], -1).astype(np.int32)
+    return tuple(torch.from_numpy(a) for a in (means, conics, opac, rect, tt.astype(np.int32)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tile_cull_bitwise_on_adversarial_rows(cuda, seed):
+    means, conics, opac, rect, tt = (x.to(cuda) for x in _cull_adversarial(seed))
+    mask, tiles = _cull_same((means, conics, opac, rect, tt), "adversarial")
+    usable = ((mask >> 16) & 1).bool()
+    assert bool(usable.any()) and bool((~usable & (tt > 0)).any())
+    assert torch.equal(tiles[~usable], tt[~usable]) and not bool(mask[~usable].any())
+    # (P, 1) opacities and rows strided as the mesh path's column slices
+    wide = torch.cat([means, conics, opac[:, None], rect.float()], 1)
+    _cull_same((wide[:, 0:2], wide[:, 2:5], wide[:, 5:6], rect, tt), "(P, 1) opacities")
+    _cull_same((wide[:, 0:2], wide[:, 2:5], wide[:, 5], rect, tt), "strided rows")
+    for p in (0, 1, 255, 257):  # P below, at and past one block
+        _cull_same(tuple(x[:p] for x in (means, conics, opac, rect, tt)), f"P = {p}")
+
+
+def test_tile_cull_replays_in_a_cuda_graph(cuda):
+    """The cull captured into a CUDA graph and replayed on new inputs of the
+    same length, an eager call after each replay: both bitwise the plain
+    loop.  A capture counts one launch; replays count none."""
+    sets = [tuple(x.to(cuda) for x in _cull_adversarial(s)) for s in range(5)]
+    buffers = [tuple(x.clone() for x in sets[0])]
+    graphs = [_capture(lambda: projection.tile_ellipse_mask(*buffers[0], **CULL))]
+    before = launch_counts()["tile_cull"]
+
+    def check(got, inputs, what):
+        ref = projection.tile_ellipse_mask_plain(*inputs, **CULL)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), what
+
+    n = _replay_in_turns(graphs, buffers, sets,
+                         lambda *b: projection.tile_ellipse_mask(*b, **CULL), check)
+    assert launch_counts()["tile_cull"] == before + n
+
+
+def test_tile_cull_counts_rows_under_the_profiler(cuda):
+    means, conics, opac, rect, tt = (x.to(cuda) for x in _cull_adversarial(9))
+    assert not tracing.enabled()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        mask, _ = projection.tile_ellipse_mask(means, conics, opac, rect, tt, **CULL)
+        projection.tile_ellipse_mask(means[:300], conics[:300], opac[:300], rect[:300],
+                                     tt[:300], **CULL)
+    c = tracing.counters()
+    rows = int((tt > 0).sum()) + int((tt[:300] > 0).sum())
+    masked = int(((mask >> 16) & 1).sum()) + int(((mask[:300] >> 16) & 1).sum())
+    assert (c["cull.rows"], c["cull.masked_rows"]) == (rows, masked)

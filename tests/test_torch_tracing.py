@@ -6,7 +6,8 @@ runs one chunk of two training steps and one eval frame:
 - off (no profiler): no ``record_function`` is entered and no total moves,
   and every output is bitwise that of the same run under the profiler;
 - on (a CPU ``torch.profiler``): the spans nest as the layers do, and the
-  counters equal what the scene's shapes and alive mask give; a second
+  counters equal what the scene's shapes and alive mask give (the tile
+  cull's, what the cull received and returned); a second
   session starts from zero, and two with no call between them merge;
 - mirror: under the benchmark's outside ranges (``gsbench.harness.ranged``)
   and the program's spans at once, each span encloses the same host ops and
@@ -169,10 +170,40 @@ def test_on_spans_nest_and_counters_count(case, tmp_path):
 
     kp = aligned_capacity(1 << 12, grid(), 128)
     needed.append(frame_needed(*frame_args))
-    assert tracing.counters() == {
+    c = tracing.counters()
+    cull = {k: c.pop(k) for k in ("cull.rows", "cull.masked_rows")}
+    assert c == {
         "deform.rows": nets * CAP * (STEPS + 1), "deform.live_rows": nets * N * (STEPS + 1),
         "binning.kp_rows": kp * (STEPS + 1), "binning.needed_rows": sum(needed)}
     assert 0 < sum(needed) < kp * (STEPS + 1)
+    # rows touching a tile are alive rows; the exact cull's are some of them
+    assert 0 < cull["cull.masked_rows"] <= cull["cull.rows"] <= N * (STEPS + 1)
+
+
+def test_cull_counters_on_a_traced_frame(monkeypatch):
+    """``cull.rows`` and ``cull.masked_rows`` of one traced frame: the rows
+    that touched a tile on the cull's entry and the rows whose mask code
+    has bit 16, read from what the plain loop received and returned."""
+    from gs_deformable_tpu_torch.ops import projection
+
+    cfg, ts, cams, _, kw = make("offset", False)
+    frame = training.make_eval_render(cfg, **kw)
+    seen = []
+    loop = projection.tile_ellipse_mask_plain
+
+    def recorded(*a, **k):
+        out = loop(*a, **k)
+        seen.append((a[4].clone(), out[0].clone()))
+        return out
+
+    monkeypatch.setattr(projection, "tile_ellipse_mask_plain", recorded)
+    frame(ts.gaussians, ts.net, cams[0], torch.zeros(3), IT0, None)  # off: ends a session
+    traced(lambda: frame(ts.gaussians, ts.net, cams[0], torch.zeros(3), IT0, None))
+    (tt, code), = seen[1:]
+    rows, masked = int((tt > 0).sum()), int(((code >> 16) & 1).sum())
+    assert 0 < masked <= rows <= N
+    c = tracing.counters()
+    assert (c["cull.rows"], c["cull.masked_rows"]) == (rows, masked)
 
 
 def test_sessions_start_from_zero_unless_nothing_ran_between():
