@@ -12,7 +12,9 @@ Knobs split two ways in this port:
 - documented no-ops: knobs that only shaped the TPU schedule (``tile_batch``,
   ``stream_chunks``, ``scan_mode``, ``defer_fwd_reductions``, ``block_rows``,
   ``fill_mode``).  The CUDA kernels compute the same values whatever they
-  are set to.
+  are set to.  So are ``pipeline.convert_shs_python`` and
+  ``pipeline.compute_cov3d_python``: the port always computes the SH colours
+  and cov3D inside ``ops.rasterize.screen_space``.
 
 ``check_supported`` raises ``ValueError`` for a value no package takes.
 """

@@ -207,20 +207,26 @@ def adam_step(params: Dict[str, Tree], grads: Dict[str, Tree], opt: AdamState,
 
 
 @torch.no_grad()
+def _densification_increments(state: GaussianState, means2d_ndc_grad: torch.Tensor,
+                              visibility: torch.Tensor, radii: torch.Tensor):
+    """One camera's (|dL/d ndc mean2D|, view count, max screen radius) of the
+    visible alive rows; 0, 0 and the old radius elsewhere."""
+    vis = visibility & state.alive
+    gn = torch.linalg.vector_norm(means2d_ndc_grad[:, :2], dim=-1, keepdim=True)
+    return (torch.where(vis[:, None], gn, 0.0), vis[:, None].to(torch.float32),
+            torch.where(vis, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
+                        state.max_radii2d))
+
+
+@torch.no_grad()
 def add_densification_stats(state: GaussianState, means2d_ndc_grad: torch.Tensor,
                             visibility: torch.Tensor, radii: torch.Tensor) -> GaussianState:
     """Accumulate |dL/d ndc mean2D|, the view count and the max screen radius
     of visible alive gaussians (gaussian_model.py:1252-1257, train.py:613-615)."""
     with tracing.span("gs.optimizer"):
-        vis = visibility & state.alive
-        gn = torch.linalg.vector_norm(means2d_ndc_grad[:, :2], dim=-1, keepdim=True)
-        return dataclasses.replace(
-            state,
-            xyz_gradient_accum=state.xyz_gradient_accum + torch.where(vis[:, None], gn, 0.0),
-            denom=state.denom + vis[:, None].to(torch.float32),
-            max_radii2d=torch.where(vis, torch.maximum(state.max_radii2d,
-                                                       radii.to(torch.float32)),
-                                    state.max_radii2d))
+        gn, seen, radii = _densification_increments(state, means2d_ndc_grad, visibility, radii)
+        return dataclasses.replace(state, xyz_gradient_accum=state.xyz_gradient_accum + gn,
+                                   denom=state.denom + seen, max_radii2d=radii)
 
 
 class DensifyInfo(NamedTuple):

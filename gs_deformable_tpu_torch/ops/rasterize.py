@@ -101,6 +101,13 @@ def composite_tiles(means2d_pix, depths, conics, opacities, colors, rect, tiles_
     return out_tiles, binning.required, binning.total_aligned
 
 
+def tiles_to_image(tiles, *, grid_x: int, width: int, height: int, cfg: RasterizeConfig):
+    """(T, C, npix) tiles in row-major order -> (C, H, W), cropped to H x W."""
+    gy, c = tiles.shape[0] // grid_x, tiles.shape[1]
+    x = tiles.reshape(gy, grid_x, c, cfg.tile_y, cfg.tile_x).permute(2, 0, 3, 1, 4)
+    return x.reshape(c, gy * cfg.tile_y, grid_x * cfg.tile_x)[:, :height, :width]
+
+
 def rasterize_arrays(means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
                      bg, *, width: int, height: int,
                      cfg: RasterizeConfig = RasterizeConfig()):
@@ -114,14 +121,10 @@ def rasterize_arrays(means2d_pix, depths, conics, opacities, colors, rect, tiles
     out_tiles, required, total_aligned = composite_tiles(
         means2d_pix, depths, conics, opacities, colors, rect, tiles_touched,
         grid_x=grid_x, grid_y=grid_y, cfg=cfg)
-    # One tile -> image relayout for all five planes: (T, 5, npix) -> (5, H, W).
-    planes = out_tiles[:, 0:5, :].reshape(grid_y, grid_x, 5, cfg.tile_y, cfg.tile_x)
-    planes = planes.permute(2, 0, 3, 1, 4).reshape(
-        5, grid_y * cfg.tile_y, grid_x * cfg.tile_x)[:, :height, :width]
-    color = planes[0:3]
+    planes = tiles_to_image(out_tiles[:, 0:5], grid_x=grid_x, width=width, height=height, cfg=cfg)
     final_t = planes[3]
     n_contrib = planes[4].detach().to(torch.int32)
-    image = color + final_t[None] * bg[:, None, None]
+    image = planes[0:3] + final_t[None] * bg[:, None, None]
     return image, final_t, n_contrib, required, total_aligned
 
 

@@ -11,8 +11,8 @@ every rank.  Rank ``r`` sits at data row ``r // n_model`` and model column
 - **model axis**: each rank holds a contiguous ``capacity / n_model`` slice
   of every per-gaussian tensor, its Adam moments and its densification
   statistics; the nets, the latent heads and the Adam step count are
-  replicated.  The per-gaussian work (deformation, activations, EWA
-  preprocess, SH colour) runs on the slice; its screen-space records (14
+  replicated.  The per-gaussian work (deformation, activations,
+  ``ops.rasterize.screen_space``) runs on the slice; its records (14
   floats a gaussian) are all-gathered over the model group; each rank bins
   and composites only its band of tile rows (``ops.rasterize.
   composite_tiles``, so every composite, fill and cull variant comes
@@ -21,6 +21,8 @@ every rank.  Rank ``r`` sits at data row ``r // n_model`` and model column
   for each rank's own rows, so each slice receives the gradient of the total
   loss and only the replicated net needs a sum over the model group.
 - The tile grid is padded with empty rows to a multiple of ``n_model``.
+- The inputs, offset norms, loss, gradients and Adam update are those of
+  ``training.make_train_step``; this module adds the gathers and reductions.
 
 Collectives go through ``_all_reduce`` / ``_all_gather``, which hand the
 tensors to ``torch.distributed`` as they are on every backend: NCCL, and
@@ -44,17 +46,20 @@ import torch.distributed as dist
 
 from .. import device as device_rules
 from ..config import Config, check_supported, layout_unit
-from ..models.gaussians import PARAM_GROUPS, GaussianState, adam_step, tree_leaves, tree_map
-from ..ops import sh as sh_ops
+from ..models.gaussians import _densification_increments
 from ..ops.binning import aligned_capacity
-from ..ops.projection import ndc2pix, preprocess
-from ..ops.rasterize import composite_tiles
-from ..ops.transforms import build_cov3d
+from ..ops.projection import ndc2pix
+from ..ops.rasterize import composite_tiles, screen_space, tiles_to_image
 from ..renderer import CameraArrays, deformed_attributes
 from ..training import (
     TrainState,
+    _apply_update,
+    _combined_loss,
+    _gradients,
+    _masked_offset_norms,
+    _rows_map,
+    _trainable_inputs,
     chunk_loop,
-    learning_rates,
     make_densify_step,
     make_generator,
     make_opacity_reset,
@@ -159,6 +164,13 @@ def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _GatherRows.apply(x, mesh.model_group, mesh.model_index)
 
 
+def _reduce_flat(tensors, group) -> list:
+    """Each tensor summed over ``group`` by one collective on their concatenation."""
+    flat = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group)
+    return [p.view_as(t) for p, t in zip(torch.split(flat, [t.numel() for t in tensors]),
+                                         tensors)]
+
+
 # -- state layout --------------------------------------------------------------
 
 
@@ -168,19 +180,6 @@ def interleave_perm(capacity: int, n_model: int) -> np.ndarray:
     (contiguous after init) spread evenly and every shard's densify free
     pool stays balanced.  Only equal-(tile, depth) sort ties can reassociate."""
     return np.arange(capacity).reshape(-1, n_model).T.reshape(-1)
-
-
-def _rows_map(ts: TrainState, fn) -> TrainState:
-    """``fn`` on every per-gaussian tensor: the state's fields and the six
-    groups' Adam moments."""
-    g = ts.gaussians
-
-    def mom(tree):
-        return {k: fn(v) if k in PARAM_GROUPS else v for k, v in tree.items()}
-
-    gauss = GaussianState(**{f.name: fn(getattr(g, f.name)) for f in dataclasses.fields(g)})
-    adam = dataclasses.replace(ts.adam, mu=mom(ts.adam.mu), nu=mom(ts.adam.nu))
-    return dataclasses.replace(ts, gaussians=gauss, adam=adam)
 
 
 def permute_gaussian_rows(ts: TrainState, perm: np.ndarray) -> TrainState:
@@ -256,37 +255,30 @@ def make_sharded_train_step(cfg: Config, mesh: Mesh, *, width: int, height: int,
     r, o = cfg.raster, cfg.opt
     grid_x = (width + r.tile_x - 1) // r.tile_x
     grid_y = (height + r.tile_y - 1) // r.tile_y
-    grid_y_p = -(-grid_y // n_model) * n_model  # empty rows pad the last band
-    band_rows = grid_y_p // n_model
+    band_rows = -(-grid_y // n_model)  # empty rows pad the last band
     band_px = band_rows * r.tile_y
     band_y0 = midx * band_rows
     npx = 3 * height * width
     rows = torch.arange(height, device=dev)
     band_mask = ((rows >= midx * band_px) & (rows < (midx + 1) * band_px)).to(
         torch.float32)[None, :, None]
-    lam = o.lambda_dssim
 
-    def assemble(tiles):
-        c = tiles.shape[1]
-        x = tiles.reshape(grid_y_p, grid_x, c, r.tile_y, r.tile_x)
-        return x.permute(2, 0, 3, 1, 4).reshape(
-            c, grid_y_p * r.tile_y, grid_x * r.tile_x)[:, :height, :width]
-
-    def forward(g0, leaves, net, latent, screen_zero, cam, gt, bg, iteration, alive_total):
-        """The rank's part of the loss (summed over the model group it is the
-        total loss) and what the step reads after the backward."""
-        alive_f = g0.alive.to(torch.float32)
-        st = g0.with_params(leaves)
+    def step(ts: TrainState, cam: CameraArrays, gt: torch.Tensor, bg: torch.Tensor,
+             iteration: int):
+        device_rules.check_on("gt", gt, dev)
+        g0 = ts.gaussians
+        alive_total = _all_reduce(g0.alive.sum().reshape(1), mesh.model_group)[0]
+        leaves, net_params, screen_zero = _trainable_inputs(ts, dev)
         means3d, scales, rotations, opacity, shs, dx = deformed_attributes(
-            st, net, cam.time, iteration, cfg, latent)
-        pre = preprocess(means3d, build_cov3d(scales, rotations), cam.world_view,
-                         cam.full_proj, width=width, height=height, tan_fovx=tan_fovx,
-                         tan_fovy=tan_fovy, tile_x=r.tile_x, tile_y=r.tile_y, alive=g0.alive,
-                         opacities=opacity[:, 0] if r.opacity_aware_radius else None)
-        colors = sh_ops.eval_sh_color(active_sh_degree, shs, means3d, cam.camera_center)
-        # The NDC-gradient tap on the local slice, before the gather.
-        ndc_local = pre.means2d_ndc + screen_zero
-        rec = torch.cat([ndc_local, pre.conics, opacity, colors, pre.depths[:, None],
+            g0.with_params(leaves), ts.net, cam.time, iteration, cfg, ts.latent)
+        ss = screen_space(means3d, scales, rotations, opacity, shs, viewmatrix=cam.world_view,
+                          projmatrix=cam.full_proj, campos=cam.camera_center, width=width,
+                          height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
+                          sh_degree=active_sh_degree, alive=g0.alive,
+                          means2d_offset_ndc=screen_zero, cfg=r)
+        pre = ss.pre
+        # The slice's screen-space records, NDC tap included, over the model group.
+        rec = torch.cat([ss.means2d_ndc, pre.conics, opacity, ss.colors, pre.depths[:, None],
                          pre.rect.to(torch.float32)], dim=1)
         full = gather_rows(rec, mesh)
         ndc, conics, op_full, col_full = full[:, 0:2], full[:, 2:5], full[:, 5], full[:, 6:9]
@@ -303,105 +295,51 @@ def make_sharded_train_step(cfg: Config, mesh: Mesh, *, width: int, height: int,
         out_tiles, required, required_aligned = composite_tiles(
             pix, depth_full, conics, op_full, col_full, rect_band, tiles_band,
             grid_x=grid_x, grid_y=band_rows, cfg=r)
-
-        planes = assemble(gather_rows(out_tiles[:, 0:4], mesh))
+        planes = tiles_to_image(gather_rows(out_tiles[:, 0:4], mesh), grid_x=grid_x,
+                                width=width, height=height, cfg=r)
         image = planes[0:3] + planes[3][None] * bg[:, None, None]
 
         # This rank's share of the loss: its band's pixel rows, its slice's
-        # offset norms.
+        # offset norms; summed over the model group it is the total loss.
         l1_local = torch.sum(torch.abs(image - gt) * band_mask) / npx
         ssim_local = torch.sum(ssim_map(image, gt) * band_mask) / npx
-        sq = (dx * dx).sum(dim=-1)
-        nz = sq > 0
-        norms = torch.sqrt(torch.where(nz, sq, 1.0)) * nz.to(torch.float32) * alive_f
+        norms = _masked_offset_norms(dx, g0.alive.to(torch.float32))
         onorm_local = norms.sum() / torch.clamp(alive_total, min=1).to(torch.float32)
-        loss_local = ((1.0 - lam) * (l1_local + o.lambda_offset_norm * onorm_local)
-                      + lam * (1.0 / n_model - ssim_local))
-        return loss_local, dict(image=image, radii=pre.radii, norms=norms.detach(),
-                                required=required, required_aligned=required_aligned,
-                                parts=torch.stack([loss_local, l1_local, ssim_local,
-                                                   onorm_local]).detach())
-
-    def step(ts: TrainState, cam: CameraArrays, gt: torch.Tensor, bg: torch.Tensor,
-             iteration: int):
-        device_rules.check_on("gt", gt, dev)
-        g0 = ts.gaussians
-        alive_total = _all_reduce(g0.alive.sum().reshape(1), mesh.model_group)[0]
-        leaves = {k: v.detach().requires_grad_(True) for k, v in g0.params().items()}
-        net_params = [] if ts.net is None else tree_leaves(ts.net.param_tree())
-        screen_zero = torch.zeros((g0.capacity, 2), dtype=torch.float32, device=dev,
-                                  requires_grad=True)
-        loss_local, aux = forward(g0, leaves, ts.net, ts.latent, screen_zero, cam, gt, bg,
-                                  iteration, alive_total)
-        inputs = [*leaves.values(), *net_params, screen_zero]
-        grads = torch.autograd.grad(loss_local, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-        n_g = len(leaves)
-        g_gauss, g_net, g_screen = grads[:n_g], grads[n_g:-1], grads[-1]
+        loss_local = _combined_loss(cfg, l1_local, onorm_local, ssim_local, 1.0 / n_model)
+        parts = torch.stack([loss_local, l1_local, ssim_local, onorm_local]).detach()
+        g_gauss, g_net, g_screen = _gradients(loss_local, leaves, net_params, screen_zero)
 
         # psum over 'model' of the net's gradients (the slices' gradients are
         # already the total loss's), with the loss terms riding along.
-        flat_net = torch.cat([g.reshape(-1) for g in g_net] + [aux["parts"]])
-        flat_net = _all_reduce(flat_net, mesh.model_group)
-
-        # Densification statistics of this camera (masked, never branched).
-        vis = (aux["radii"] > 0) & g0.alive & (iteration < o.densify_until_iter)
-        gn = torch.linalg.vector_norm(g_screen[:, :2], dim=-1, keepdim=True)
-        stats = torch.cat([torch.where(vis[:, None], gn, 0.0), vis[:, None].to(torch.float32)],
-                          dim=1)
+        *g_net, parts = _reduce_flat([*g_net, parts], mesh.model_group)
+        gn, seen, radii = _densification_increments(
+            g0, g_screen, (pre.radii > 0) & (iteration < o.densify_until_iter), pre.radii)
         # The offset norms of data row 0 (what JAX's replicated output reads).
-        norms0 = aux["norms"] * float(mesh.data_index == 0)
-        psnr_v = psnr(aux["image"].detach()[None], gt[None]).mean().reshape(1)
-        # One sum over 'data': the gaussian and net gradients and the metrics
-        # (then the mean), the statistics and row 0's norms (summed).
-        sizes = [g.numel() for g in g_gauss] + [flat_net.numel(), 1, stats.numel(),
-                                                norms0.numel()]
-        flat = torch.cat([g.reshape(-1) for g in g_gauss]
-                         + [flat_net, psnr_v, stats.reshape(-1), norms0])
-        flat = _all_reduce(flat, mesh.data_group)
-        parts = list(torch.split(flat, sizes))
+        norms0 = norms.detach() * float(mesh.data_index == 0)
+        psnr_v = psnr(image.detach()[None], gt[None]).mean().reshape(1)
+        # One sum over 'data': the gradients and the metrics (then their mean),
+        # the statistics and row 0's norms; the largest radius.
+        *means, stats, norms0 = _reduce_flat(
+            [*g_gauss, *g_net, parts, psnr_v, torch.cat([gn, seen], dim=1), norms0],
+            mesh.data_group)
         if n_data > 1:
-            parts[:n_g + 2] = [p / n_data for p in parts[:n_g + 2]]
-        g_gauss = [p.view_as(g) for p, g in zip(parts[:n_g], g_gauss)]
-        net_flat, psnr_mean, stats, norms0 = parts[n_g:]
-        metrics_f = net_flat[-4:]
-        it_net = iter(torch.split(net_flat[:-4], [g.numel() for g in g_net]))
-        g_net = [next(it_net).view_as(g) for g in g_net]
-        stats = stats.view(-1, 2)
-
-        radii = torch.where(vis, torch.maximum(g0.max_radii2d, aux["radii"].to(torch.float32)),
-                            g0.max_radii2d)
+            means = [m / n_data for m in means]
+        n = len(g_gauss)
+        g_gauss, g_net, (parts, psnr_mean) = means[:n], means[n:-2], means[-2:]
         radii = _all_reduce(radii, mesh.data_group, dist.ReduceOp.MAX)
         gstate = dataclasses.replace(
             g0, xyz_gradient_accum=g0.xyz_gradient_accum + stats[:, 0:1],
             denom=g0.denom + stats[:, 1:2], max_radii2d=radii, last_offset_norm=norms0)
+        ts = _apply_update(ts, gstate, g_gauss, g_net, iteration, cfg, spatial_lr_scale, dev)
 
-        grad_tree = dict(zip(leaves, g_gauss))
-        params = dict(gstate.params())
-        if ts.net is not None:
-            it_g = iter(g_net)
-            grad_tree["offset_model"] = tree_map(lambda _: next(it_g), ts.net.param_tree())
-            params["offset_model"] = ts.net.param_tree()
-        lrs = learning_rates(iteration, cfg, spatial_lr_scale, device=dev)
-        new_params, new_adam = adam_step(params, grad_tree, ts.adam, lrs, b1=o.adam_b1,
-                                         b2=o.adam_b2, eps=o.adam_eps)
-        new_net = new_params.pop("offset_model", None)
-        if ts.net is not None:
-            with torch.no_grad():
-                for p, v in zip(net_params, tree_leaves(new_net)):
-                    p.copy_(v)
-        gstate = gstate.with_params(new_params)
-
-        req = torch.stack([aux["required"], aux["required_aligned"]]).to(torch.int64)
+        req = torch.stack([required, required_aligned]).to(torch.int64)
         req = _all_reduce(req, mesh.world_group, dist.ReduceOp.MAX)
         metrics = {
-            "loss": metrics_f[0], "ll1": metrics_f[1], "ssim": metrics_f[2],
-            "offset_norm": metrics_f[3], "psnr": psnr_mean[0],
-            "required_instances": req[0].to(torch.int32),
-            "required_aligned": req[1].to(torch.int32),
-            "n_alive": alive_total,
+            "loss": parts[0], "ll1": parts[1], "ssim": parts[2], "offset_norm": parts[3],
+            "psnr": psnr_mean[0], "required_instances": req[0].to(torch.int32),
+            "required_aligned": req[1].to(torch.int32), "n_alive": alive_total,
         }
-        return dataclasses.replace(ts, gaussians=gstate, adam=new_adam), metrics
+        return ts, metrics
 
     return step
 

@@ -16,9 +16,7 @@ from . import tracing
 from .config import Config, check_supported
 from .models import deform as deform_mod
 from .models.gaussians import GaussianState
-from .ops import sh as sh_ops
 from .ops.rasterize import RenderOut, render_gaussians
-from .ops.transforms import build_cov3d
 
 
 class CameraArrays(NamedTuple):
@@ -132,19 +130,11 @@ def render(state: GaussianState, net: Optional[deform_mod.DeformMLP], camera: Ca
         device_rules.check_on(name, t, dev)
     means3d, scales, rotations, opacity, shs, dx = deformed_attributes(
         state, net, camera.time, iteration, cfg, latent)
-    colors_precomp = None
-    cov3d_precomp = None
-    if cfg.pipeline.convert_shs_python:
-        colors_precomp = sh_ops.eval_sh_color(active_sh_degree, shs, means3d,
-                                              camera.camera_center)
-    if cfg.pipeline.compute_cov3d_python:
-        cov3d_precomp = build_cov3d(scales, rotations, scale_modifier)
     out = render_gaussians(
         means3d, scales, rotations, opacity, shs,
         viewmatrix=camera.world_view, projmatrix=camera.full_proj,
         campos=camera.camera_center, bg=bg, width=width, height=height,
         tan_fovx=tan_fovx, tan_fovy=tan_fovy, sh_degree=active_sh_degree,
         scale_modifier=scale_modifier, alive=state.alive,
-        means2d_offset_ndc=means2d_offset_ndc, colors_precomp=colors_precomp,
-        cov3d_precomp=cov3d_precomp, cfg=cfg.raster)
+        means2d_offset_ndc=means2d_offset_ndc, cfg=cfg.raster)
     return out, dx

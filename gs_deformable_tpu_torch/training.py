@@ -134,6 +134,61 @@ def learning_rates(iteration, cfg: Config, spatial_lr_scale: float,
     }
 
 
+def _trainable_inputs(ts: TrainState, device):
+    """(the six groups as leaves that take a gradient, the net's parameters,
+    ``screen_zero``: the zero NDC tap, whose gradient is dL/d ndc mean2D)."""
+    g = ts.gaussians
+    leaves = {k: v.detach().requires_grad_(True) for k, v in g.params().items()}
+    net_params = [] if ts.net is None else tree_leaves(ts.net.param_tree())
+    return leaves, net_params, torch.zeros((g.capacity, 2), dtype=torch.float32,
+                                           device=device, requires_grad=True)
+
+
+def _masked_offset_norms(dx: torch.Tensor, alive_f: torch.Tensor) -> torch.Tensor:
+    """|dx| a row times ``alive_f``.  dx is 0 in dead slots and in warmup, where
+    sqrt's derivative is infinite: the double where keeps 0 * inf out of the MLP."""
+    sq = (dx * dx).sum(dim=-1)
+    nz = sq > 0
+    return torch.sqrt(torch.where(nz, sq, 1.0)) * nz.to(torch.float32) * alive_f
+
+
+def _combined_loss(cfg: Config, ll1, offset_norm, ssim_val, ssim_one=1.0):
+    """The module docstring's loss; the mesh's bands pass their shares, and
+    ``ssim_one = 1 / n_model``."""
+    o = cfg.opt
+    return ((1.0 - o.lambda_dssim) * (ll1 + o.lambda_offset_norm * offset_norm)
+            + o.lambda_dssim * (ssim_one - ssim_val))
+
+
+def _gradients(loss, leaves, net_params, screen_zero):
+    """d loss / d ``_trainable_inputs`` (zeros where unused): the groups', the
+    net's and the NDC tap's."""
+    inputs = [*leaves.values(), *net_params, screen_zero]
+    with tracing.span("gs.backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+    return grads[:len(leaves)], grads[len(leaves):-1], grads[-1]
+
+
+def _apply_update(ts: TrainState, gstate: GaussianState, g_gauss, g_net, iteration: int,
+                  cfg: Config, spatial_lr_scale: float, device) -> TrainState:
+    """Adam on every group of ``gstate`` (the step's state with its new
+    statistics) and of the net, which is written back in place."""
+    o = cfg.opt
+    params = _params(gstate, ts.net)
+    grad_tree = dict(zip(PARAM_GROUPS, g_gauss))
+    net_leaves = tree_leaves(params.get("offset_model", []))
+    if net_leaves:
+        by_leaf = dict(zip(map(id, net_leaves), g_net))
+        grad_tree["offset_model"] = tree_map(lambda p: by_leaf[id(p)], params["offset_model"])
+    lrs = learning_rates(iteration, cfg, spatial_lr_scale, device=device)
+    new_params, new_adam = adam_step(params, grad_tree, ts.adam, lrs,
+                                     b1=o.adam_b1, b2=o.adam_b2, eps=o.adam_eps)
+    with torch.no_grad():
+        for p, v in zip(net_leaves, tree_leaves(new_params.pop("offset_model", []))):
+            p.copy_(v)
+    return dataclasses.replace(ts, gaussians=gstate.with_params(new_params), adam=new_adam)
+
+
 def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
                     tan_fovy: float, active_sh_degree: int, spatial_lr_scale: float,
                     device="cuda"):
@@ -159,51 +214,24 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
             device_rules.check_on("gt_image", gt_image, dev)
             g0 = ts.gaussians
             alive_f = g0.alive.to(torch.float32)
-            leaves = {k: v.detach().requires_grad_(True) for k, v in g0.params().items()}
-            net_params = [] if ts.net is None else tree_leaves(ts.net.param_tree())
-            screen_zero = torch.zeros((g0.capacity, 2), dtype=torch.float32, device=dev,
-                                      requires_grad=True)
-
+            leaves, net_params, screen_zero = _trainable_inputs(ts, dev)
             out, dx = render(g0.with_params(leaves), ts.net, cam, iteration=iteration, bg=bg,
                              width=width, height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
                              active_sh_degree=active_sh_degree, cfg=cfg,
                              means2d_offset_ndc=screen_zero, latent=ts.latent, device=dev)
             img = out.image
             ll1 = l1_loss(img, gt_image)
-            # dx is exactly 0 in dead slots and during warmup, where sqrt has an
-            # infinite derivative: the double where keeps 0 * inf out of the MLP.
-            sq = (dx * dx).sum(dim=-1)
-            nz = sq > 0
-            norms = torch.sqrt(torch.where(nz, sq, 1.0)) * nz.to(torch.float32)
-            offset_norm = (norms * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
+            norms = _masked_offset_norms(dx, alive_f)
+            offset_norm = norms.sum() / torch.clamp(alive_f.sum(), min=1.0)
             ssim_val = ssim(img, gt_image)
-            loss = ((1.0 - o.lambda_dssim) * (ll1 + o.lambda_offset_norm * offset_norm)
-                    + o.lambda_dssim * (1.0 - ssim_val))
-
-            inputs = [*leaves.values(), *net_params, screen_zero]
-            with tracing.span("gs.backward"):
-                grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-            g_screen = grads[-1]
-            grad_tree = dict(zip(leaves, grads[:len(leaves)]))
-            if ts.net is not None:
-                it = iter(grads[len(leaves):-1])
-                grad_tree["offset_model"] = tree_map(lambda _: next(it), ts.net.param_tree())
+            loss = _combined_loss(cfg, ll1, offset_norm, ssim_val)
+            g_gauss, g_net, g_screen = _gradients(loss, leaves, net_params, screen_zero)
 
             gstate = add_densification_stats(g0, g_screen,
                                               out.visibility & (iteration < o.densify_until_iter),
                                               out.radii)
-            gstate = dataclasses.replace(gstate, last_offset_norm=(norms * alive_f).detach())
-
-            lrs = learning_rates(iteration, cfg, spatial_lr_scale, device=dev)
-            new_params, new_adam = adam_step(_params(gstate, ts.net), grad_tree, ts.adam, lrs,
-                                             b1=o.adam_b1, b2=o.adam_b2, eps=o.adam_eps)
-            new_net = new_params.pop("offset_model", None)
-            if ts.net is not None:
-                with torch.no_grad():
-                    for p, v in zip(net_params, tree_leaves(new_net)):
-                        p.copy_(v)
-            gstate = gstate.with_params(new_params)
+            gstate = dataclasses.replace(gstate, last_offset_norm=norms.detach())
+            ts = _apply_update(ts, gstate, g_gauss, g_net, iteration, cfg, spatial_lr_scale, dev)
 
             with torch.no_grad():
                 metrics = {
@@ -214,9 +242,9 @@ def make_train_step(cfg: Config, *, width: int, height: int, tan_fovx: float,
                     "offset_norm": offset_norm.detach(),
                     "required_instances": out.required_instances,
                     "required_aligned": out.required_aligned,
-                    "n_alive": gstate.num_alive,
+                    "n_alive": ts.gaussians.num_alive,
                 }
-            return dataclasses.replace(ts, gaussians=gstate, adam=new_adam), metrics
+            return ts, metrics
 
     return step
 
@@ -441,18 +469,26 @@ def grow_capacity(ts: TrainState, new_capacity: int) -> TrainState:
     ``new_capacity`` rows: dead, identity rotations, zeros elsewhere.  The
     nets (latent heads included), the net's moments, the step count and the
     generator carry over."""
-    g = ts.gaussians
-    old = g.capacity
+    old = ts.gaussians.capacity
     if new_capacity <= old:
         raise ValueError(f"new capacity {new_capacity} must exceed {old}")
 
     def pad(x):
         return torch.cat([x, x.new_zeros((new_capacity - old,) + x.shape[1:])])
 
-    new_g = GaussianState(**{f.name: pad(getattr(g, f.name)) for f in dataclasses.fields(g)})
-    new_g.rotation[old:, 0] = 1.0
-    adam = dataclasses.replace(
-        ts.adam,
-        mu={k: pad(v) if k in PARAM_GROUPS else v for k, v in ts.adam.mu.items()},
-        nu={k: pad(v) if k in PARAM_GROUPS else v for k, v in ts.adam.nu.items()})
-    return dataclasses.replace(ts, gaussians=new_g, adam=adam)
+    ts = _rows_map(ts, pad)
+    ts.gaussians.rotation[old:, 0] = 1.0
+    return ts
+
+
+def _rows_map(ts: TrainState, fn) -> TrainState:
+    """``fn`` on every per-gaussian tensor: the state's fields and the six
+    groups' Adam moments."""
+    g = ts.gaussians
+
+    def mom(tree):
+        return {k: fn(v) if k in PARAM_GROUPS else v for k, v in tree.items()}
+
+    gauss = GaussianState(**{f.name: fn(getattr(g, f.name)) for f in dataclasses.fields(g)})
+    adam = dataclasses.replace(ts.adam, mu=mom(ts.adam.mu), nu=mom(ts.adam.nu))
+    return dataclasses.replace(ts, gaussians=gauss, adam=adam)
