@@ -273,6 +273,19 @@ Phases (any failure raises and the script exits non-zero):
    launches (one a frame and a step) are checked exactly wherever the
    composite's are, and in phases 11, 12, 14 and 15 it is held bitwise on
    the inputs recorded inside the runs.
+19. the screen-space kernels (``ops/kernels/screen_space.py``,
+   ``csrc/screen_space.cu``) on the render path's deformed attributes of
+   phase 3's scene recipe at phase 18's capacities and sizes, with the
+   train path's zeros tap and cotangents (pixel centre, conic, colour):
+   the forward's integers equal to the plain chain's
+   (``screen_space.forward_plain``) on the same CUDA tensors and its floats
+   within 2 ulps, the backward at the train step's gradient bar against
+   autograd of the plain chain; each kernel's and the plain chain's median
+   times (CUDA events, L2 flushed), host time to enqueue a call, and the
+   least time at 3.35 TB/s of the bytes each call reads and writes once.
+   Their launches (one forward a frame, one of each a step) are checked
+   exactly wherever the composite's are, and in phases 11, 12, 14 and 15
+   both are held to the plain chain on the inputs recorded inside the runs.
 
 With ``--profile`` it also traces two frames and two train steps with
 torch.profiler and prints the device time by kernel name (the breakdowns of
@@ -317,9 +330,9 @@ ITERATION = 10_000
 PROFILE = "--profile" in sys.argv[1:]
 NTILES = ((W + 15) // 16) * ((H + 15) // 16)
 
-RENDER_LAUNCHES = {"tile_cull": 1, "composite_forward": 1, "ordered_prefix_fill": 2,
-                   "ordered_place_i32": 1}
-STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1)
+RENDER_LAUNCHES = {"screen_space_forward": 1, "tile_cull": 1, "composite_forward": 1,
+                   "ordered_prefix_fill": 2, "ordered_place_i32": 1}
+STEP_LAUNCHES = dict(RENDER_LAUNCHES, composite_backward=1, screen_space_backward=1)
 PACKED_SUB = 32  # bench.py:251 takes RasterizeConfig's default sub_chunk
 CHUNK_MAX, CHUNKS = 10, 4  # bench.py:321, 338
 TURNS, TURN_STEPS = 4, 5  # chained packed / mixed steps, in turns
@@ -336,6 +349,11 @@ TRAIN_ICAP, TRAIN_SLACK = 256 * 1024, 176 * 1024  # bench.py:63
 # reads its centre, conic, opacity, rect and tile count and writes two int32.
 CULL_ROWS, CULL_SHAPES = ((1 << 18, 100_000), (1 << 20, 400_000)), ((W, H), (TRAIN_W, TRAIN_H))
 CULL_ROW_BYTES = 8 + 12 + 4 + 16 + 4 + 8
+# Phase 19: the screen-space kernels at the same capacities and sizes, on
+# the render path's deformed attributes, with the train path's zeros tap and
+# cotangents (pixel centre, conic, colour); floats within SS_ULPS of the
+# plain chain.
+SS_ULPS = 2
 LEARN_ICAP = 512 * 1024
 TRAIN_ITERATION = 5000  # past the 3000-iteration warmup
 TRAIN_STEPS = 6  # timed, after one warm-up step
@@ -979,6 +997,81 @@ def cull_record(torch, timer, label, args, kw, host=False):
                                     f"{rec['plain_host_us']:.1f}" if host else "")
         + "; bitwise equal")
     return rec
+
+
+def max_ulps(torch, a, b):
+    """The largest distance in float32 ulps between two tensors (NaN = NaN,
+    -0 = +0)."""
+    if a.numel() == 0:
+        return 0
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return int(torch.where(same, 0, (ordered(a) - ordered(b)).abs()).max())
+
+
+def screen_space_same(torch, label, fwd, bwd=None):
+    """The screen-space kernels on one call's recorded inputs, (args, kwargs)
+    each: the forward's integers equal the plain chain's on the same tensors
+    and its floats within SS_ULPS ulps; the backward (where given) at the
+    train step's bar, rtol 1e-3 and atol 5e-5 x each gradient's largest |g|,
+    against autograd of the plain chain, with a gradient for each input the
+    call wanted and none for the others."""
+    from gs_deformable_tpu_torch.ops.kernels import screen_space as ssk
+
+    args, kw = fwd
+    got = ssk.screen_space_forward(*args, **kw)
+    ref = ssk.forward_plain(*args, **kw)
+    worst = 0
+    for name, g, r in zip(ssk.OUTPUTS, got, ref):
+        if r is None:
+            continue
+        if r.dtype.is_floating_point:
+            worst = max(worst, max_ulps(torch, g, r))
+        elif not torch.equal(g, r):
+            raise AssertionError(f"{label}: screen_space_forward's {name} differs from the "
+                                 f"plain chain in {int((g != r).sum())} elements")
+    if worst > SS_ULPS:
+        raise AssertionError(f"{label}: screen_space_forward's floats {worst} ulps off")
+    out = {"label": label, "n": args[0].shape[0], "forward_max_ulps": worst,
+           "integers_equal_plain": True}
+    if bwd is not None:
+        args, kw = bwd
+        got = ssk.screen_space_backward(*args, **kw)
+        plain_kw = {k: v for k, v in kw.items() if k != "want"}
+        ref = ssk.backward_plain(*args, **plain_kw)
+        want = kw.get("want", (True,) * len(ssk.INPUTS))
+        want = tuple(want[:4]) + (want[4] and kw["tap_given"],)
+        excess = 0.0
+        for name, w, g, r in zip(ssk.INPUTS, want, got, ref):
+            if (g is None) == bool(w):
+                raise AssertionError(f"{label}: screen_space_backward's {name} is "
+                                     f"{'None' if g is None else 'a tensor'}, wanted {bool(w)}")
+            if g is None:
+                continue
+            if r is None:  # no cotangent reaches it: autograd's None, the kernel's zeros
+                if bool(g.any()):
+                    raise AssertionError(f"{label}: screen_space_backward's {name} is not "
+                                         "zero where no cotangent reaches it")
+                continue
+            fin = torch.isfinite(r)
+            if not torch.equal(torch.isfinite(g), fin):
+                raise AssertionError(f"{label}: screen_space_backward's {name} is not finite "
+                                     "where autograd's is")
+            scale = float(r[fin].abs().max()) if bool(fin.any()) else 0.0
+            e = float(((g[fin] - r[fin]).abs() - 1e-3 * r[fin].abs()).max()) if scale else 0.0
+            excess = max(excess, e / scale if scale else 0.0)
+            if e > 5e-5 * scale:
+                raise AssertionError(f"{label}: screen_space_backward's {name} off the bar "
+                                     f"({e:.3g} over {scale:.3g})")
+        out["backward_max_excess_over_scale"] = excess
+    log(f"  screen space {label}: forward integers equal, floats within {worst} ulps"
+        + (f"; backward at the bar (worst excess {out['backward_max_excess_over_scale']:.2e} "
+           "of the scale)" if bwd is not None else ""))
+    return out
 
 
 def knife_edge_close(got, ref, *, atol, knife, rtol=1e-4, max_frac=1e-3):
@@ -1879,6 +1972,8 @@ def scene_phase(torch, timer, root):
             "composite_backward": SCENE_STEPS + SCENE_GROWN_STEPS}
     want["ordered_prefix_fill"] = 2 * want["composite_forward"]
     want["ordered_place_i32"] = want["tile_cull"] = want["composite_forward"]
+    want["screen_space_forward"] = want["composite_forward"]
+    want["screen_space_backward"] = want["composite_backward"]
     if raster_launches(counts) != want:
         raise AssertionError(f"scene path launches {counts}, expected {want}")
     times["ms_per_step"] = float(np.median(step_ms))
@@ -1919,15 +2014,19 @@ def recorded_frames(torch, frames):
     tile cull comes before its fills."""
     from gs_deformable_tpu_torch.ops import binning as binning_mod
     from gs_deformable_tpu_torch.ops.kernels import composite as comp_mod
+    from gs_deformable_tpu_torch.ops.kernels import screen_space as ss_mod
     from gs_deformable_tpu_torch.ops.kernels import tile_cull as cull_mod
 
     fills_per_frame = {"ordered_prefix_fill": 2, "ordered_place_i32": 1}
     home = {"tile_cull": cull_mod, "ordered_prefix_fill": binning_mod,
             "ordered_place_i32": binning_mod, "composite_forward": comp_mod,
-            "composite_backward": comp_mod}
+            "composite_backward": comp_mod, "screen_space_forward": ss_mod,
+            "screen_space_backward": ss_mod}
     rec = {"calls": dict.fromkeys(home, 0),
            "frames": {f: {"tile_cull": None, "fills": [], "composite_forward": None,
-                          "composite_backward": None, "splats": None} for f in frames}}
+                          "composite_backward": None, "splats": None,
+                          "screen_space_forward": None, "screen_space_backward": None,
+                          "means3d": None} for f in frames}}
     saved = {name: getattr(mod, name) for name, mod in home.items()}
 
     class Kept:
@@ -1949,10 +2048,24 @@ def recorded_frames(torch, frames):
             k = rec["calls"][name]
             rec["calls"][name] = k + 1
 
-            def clone():
-                return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            def copy(a):
+                if isinstance(a, tuple):
+                    return tuple(copy(x) for x in a)
+                return a.clone() if torch.is_tensor(a) else a
 
-            if name == "tile_cull":
+            def clone():
+                return copy(args)
+
+            if name == "screen_space_forward":
+                f = rec["frames"].get(k)
+                if f is not None:
+                    f[name] = (clone(), {key: copy(v) for key, v in kw.items()})
+                    f["means3d"] = args[0]
+            elif name == "screen_space_backward":
+                for f in rec["frames"].values():
+                    if f["means3d"] is not None and args[0].data_ptr() == f["means3d"].data_ptr():
+                        f[name], f["means3d"] = (clone(), dict(kw)), None
+            elif name == "tile_cull":
                 f = rec["frames"].get(k)
                 if f is not None:
                     f[name] = (clone(), dict(kw))
@@ -2007,9 +2120,15 @@ def recorded_checks(torch, timer, rec, frame, counts, cfg, label, backward):
                                                                            count))):
             raise AssertionError(f"{label}: the backward's tables are not the forward's")
         upstream = (fwd_out, grad)
+    if f["screen_space_forward"] is None or backward != (f["screen_space_backward"] is not None):
+        raise AssertionError(f"{label}: recorded screen space forward "
+                             f"{f['screen_space_forward'] is not None}, backward "
+                             f"{f['screen_space_backward'] is not None}")
+    ss = screen_space_same(torch, label, f["screen_space_forward"], f["screen_space_backward"])
     binning = types.SimpleNamespace(tile_chunk_start=start, tile_count=count)
     return scene_kernel_checks(torch, timer, (splats_t, binning, kw["grid_x"], f["fills"]),
-                               cfg, label, backward, upstream, cull=f["tile_cull"])
+                               cfg, label, backward, upstream, cull=f["tile_cull"]) | {
+                                   "screen_space": ss}
 
 
 def loss_by_iteration(timeline):
@@ -2175,6 +2294,8 @@ def cli_phase(torch, timer, root):
     want = {"composite_forward": last + report_views, "composite_backward": last}
     want["ordered_prefix_fill"] = 2 * want["composite_forward"]
     want["ordered_place_i32"] = want["tile_cull"] = want["composite_forward"]
+    want["screen_space_forward"] = want["composite_forward"]
+    want["screen_space_backward"] = want["composite_backward"]
     log(f"  trained {last} iterations in {train_s:.1f} s; the viewer's socket "
         f"{'bound' if viewer_bound else 'did not bind'}; launches {counts}")
     if raster_launches(counts) != want:
@@ -2234,7 +2355,8 @@ def cli_phase(torch, timer, root):
     rcounts = launch_counts()
     views = SCENE_TRAIN + SCENE_TEST
     rwant = {"composite_forward": views, "composite_backward": 0,
-             "ordered_prefix_fill": 2 * views, "ordered_place_i32": views, "tile_cull": views}
+             "ordered_prefix_fill": 2 * views, "ordered_place_i32": views, "tile_cull": views,
+             "screen_space_forward": views, "screen_space_backward": 0}
     if raster_launches(rcounts) != rwant:
         raise AssertionError(f"render CLI launches {rcounts}, expected {rwant}")
     test_dir = os.path.join(model, "test", f"ours_{last}")
@@ -2570,8 +2692,10 @@ def band_frame_check(torch, rec, frame, counts, cfg, label):
         raise AssertionError(f"{label}: the recorder saw {rec['calls']}, the counters {counts}")
     f = rec["frames"][frame]
     if (f["composite_forward"] is None or f["composite_backward"] is None
-            or f["tile_cull"] is None or len(f["fills"]) != 3):
+            or f["tile_cull"] is None or len(f["fills"]) != 3
+            or f["screen_space_forward"] is None or f["screen_space_backward"] is None):
         raise AssertionError(f"{label}: the frame was not recorded whole")
+    ss = screen_space_same(torch, label, f["screen_space_forward"], f["screen_space_backward"])
     cull_same(torch, label, *f["tile_cull"])
     for name, pos, x, k in f["fills"]:
         got = (of.ordered_prefix_fill(pos, x, k) if name == "ordered_prefix_fill"
@@ -2599,7 +2723,7 @@ def band_frame_check(torch, rec, frame, counts, cfg, label):
             "instances": int(count.sum()), "fills": [(n, int(p.shape[0]), int(k))
                                                      for n, p, _, k in f["fills"]],
             "forward_bitwise": True, "backward_max_abs_err": err,
-            "backward_max_err_over_row_scale": rel}
+            "backward_max_err_over_row_scale": rel, "screen_space": ss}
 
 
 def digest(tensors):
@@ -3364,7 +3488,8 @@ def quality_phase(torch, timer, root, iters=QUALITY_ITERS, warmup=QUALITY_WARMUP
             ("render CLI", run["render_launches"], QUALITY_TRAIN + QUALITY_TEST, 0)):
         want = {"composite_forward": forward, "composite_backward": backward,
                 "ordered_prefix_fill": 2 * forward, "ordered_place_i32": forward,
-                "tile_cull": forward}
+                "tile_cull": forward, "screen_space_forward": forward,
+                "screen_space_backward": backward}
         if raster_launches(got) != want:
             raise AssertionError(f"{what} launches {got}, expected {want}")
     if not checks:
@@ -3730,6 +3855,65 @@ def cull_phase(torch, timer):
     return {"calls": calls}
 
 
+def screen_space_phase(torch, timer):
+    """Phase 19: both screen-space kernels on the render path's deformed
+    attributes at the main path's shapes (CULL_ROWS x CULL_SHAPES), with the
+    train path's zeros tap and cotangents: held to the plain chain
+    (``screen_space_same``), their and the plain chain's median times (CUDA
+    events, L2 flushed) and host time to enqueue a call, against the least
+    time at 3.35 TB/s of the bytes each call reads and writes once."""
+    from gs_deformable_tpu_torch import config, renderer
+    from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
+    from gs_deformable_tpu_torch.ops.kernels import screen_space as ssk
+
+    cfg = render_cfg(config)
+    net = OffsetNet(init_offset_params(0, cfg.deform), cfg.deform, device="cuda")
+    calls = []
+    for cap, n in CULL_ROWS:
+        state = scene(torch, n, cap)
+        gen = torch.Generator(device="cuda").manual_seed(cap)
+        for w, h in CULL_SHAPES:
+            label = f"{w}x{h}, {n} of {cap} rows"
+            cam, tanx, tany = camera(w, h, 0.3, "cuda")
+            with torch.no_grad():
+                m, sc, q, o, shs, _ = renderer.deformed_attributes(state, net, cam.time,
+                                                                   ITERATION, cfg)
+            args = (m, sc, q, shs, cam.world_view, cam.full_proj, cam.camera_center)
+            kw = dict(width=w, height=h, tan_fovx=tanx, tan_fovy=tany, sh_degree=3)
+            fkw = dict(kw, opacities=o, alive=state.alive,
+                       tap=torch.zeros((cap, 2), device="cuda"))
+            live = state.alive[:, None].float()
+            cot = tuple(None if k not in ("conics", "colors", "pix_tap") else
+                        torch.randn((cap, 3 if k != "pix_tap" else 2), generator=gen,
+                                    device="cuda") * live for k in ssk.GRAD_OUTPUTS)
+            bkw = dict(kw, tap_given=True)
+            rec = screen_space_same(torch, label, (args, fkw), (args + (cot,), bkw))
+            outs = ssk.screen_space_forward(*args, **fkw)
+            grads = ssk.screen_space_backward(*args, cot, **bkw)
+
+            def nbytes(ts):
+                return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+            fwd_bytes = nbytes([*args[:4], o, state.alive, fkw["tap"], *outs])
+            bwd_bytes = nbytes([*args[:4], *cot, *grads])
+            for side, fn, plain, nb in (
+                    ("forward", lambda: ssk.screen_space_forward(*args, **fkw),
+                     lambda: ssk.forward_plain(*args, **fkw), fwd_bytes),
+                    ("backward", lambda: ssk.screen_space_backward(*args, cot, **bkw),
+                     lambda: ssk.backward_plain(*args, cot, **bkw), bwd_bytes)):
+                rec[side] = {"ms": timer.ms(fn, 20), "plain_ms": timer.ms(plain, 3),
+                             "bound_ms": bytes_ms(nb), "bound_by": "bytes", "bytes": nb,
+                             "host_us": host_us(torch, fn),
+                             "plain_host_us": host_us(torch, plain, calls=3, batches=3)}
+                r = rec[side]
+                log(f"  screen_space_{side} {label}: kernel {r['ms']:.4f} ms  plain "
+                    f"{r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} ({nb / cap:.0f} B a row); "
+                    f"host {r['host_us']:.1f} us a call against {r['plain_host_us']:.1f}")
+            calls.append(rec)
+        del state
+    return {"calls": calls}
+
+
 def main():
     import torch
 
@@ -3896,6 +4080,10 @@ def main():
     log(f"  {card}")
     cull_rec = cull_phase(torch, timer)
 
+    phase("phase 19: the screen-space kernels at the main path's shapes")
+    log(f"  {card}")
+    ss_rec = screen_space_phase(torch, timer)
+
     # "launches": the path each kernel entry belongs to: the train steps of
     # phase 6 (a) for the chunk-aligned layout, the chunked packed train loop
     # of phase 9 for the packed entries; "launches_chunked": phase 9;
@@ -4019,6 +4207,7 @@ def main():
         "reduced_step": reduced_step, "chunked": chunked, "packed": packed,
         "scene": scene_rec, "cli": cli_rec, "colmap": colmap_rec, "mesh": mesh_rec,
         "quality": quality_rec, "graph": graph_rec, "trunk": trunk_rec, "cull": cull_rec,
+        "screen_space": ss_rec,
         "kernels": kernels, "breakdown": breakdown,
         "phase_start_s": phase_s, "seconds": time.time() - t_start,
     }

@@ -8,16 +8,16 @@ CUDA graph counts once, when it is captured; the graph's replays launch the
 kernel without Python and are not counted.
 
 ``WRAPPERS`` and ``launch_counts`` cover every kernel: the rasterizer's
-(the tile cull, the fills, the composite), whose launches a frame and a
-step do not depend on the net, and the deformation trunk's epilogues,
-which launch once a hidden layer a net in the bf16 tiers
+(screen space, the tile cull, the fills, the composite), whose launches
+a frame and a step do not depend on the net, and the deformation trunk's
+epilogues, which launch once a hidden layer a net in the bf16 tiers
 (``trunk_bias_relu`` forward, ``trunk_relu_mask`` backward) and never in
 "float32" or before the nets' warmup ends.
 """
 
 from __future__ import annotations
 
-from . import composite, ordered_fill, tile_cull, trunk
+from . import composite, ordered_fill, screen_space, tile_cull, trunk
 
 WRAPPERS = {
     "composite_forward": composite.composite_forward,
@@ -27,6 +27,8 @@ WRAPPERS = {
     "trunk_bias_relu": trunk.bias_relu_bf16,
     "trunk_relu_mask": trunk.relu_mask_bf16,
     "tile_cull": tile_cull.tile_cull,
+    "screen_space_forward": screen_space.screen_space_forward,
+    "screen_space_backward": screen_space.screen_space_backward,
 }
 
 

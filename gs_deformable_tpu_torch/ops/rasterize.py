@@ -2,12 +2,14 @@
 CUDA composite.
 
 Port of ``gs_deformable_tpu/ops/rasterize.py``.  Preprocess and SH colour
-are plain PyTorch and autograd supplies their backward; binning is integer
-bookkeeping with no gradient; the sorted-splat gather (``GatherSplatsT``)
-and the composite (``Composite``, forward and backward CUDA kernels) carry
-their own backward, so ``means2d_pix``, ``conics``, ``opacities`` and
-``colors`` get gradients as in the JAX version.  Every ``composite_mode``
-("mixed", "batch", "stream", "packed") runs the same two kernels: the JAX
+(``screen_space``) are one CUDA kernel each way on the card
+(``ops/kernels/screen_space.py``) and plain PyTorch under autograd on the
+CPU; binning is integer bookkeeping with no gradient; the sorted-splat
+gather (``GatherSplatsT``) and the composite (``Composite``, forward and
+backward CUDA kernels) carry their own backward, so ``means2d_pix``,
+``conics``, ``opacities`` and ``colors`` get gradients as in the JAX
+version.  Every ``composite_mode`` ("mixed", "batch", "stream",
+"packed") runs the same two kernels: the JAX
 schedules compute the same function.  "packed" only aligns each tile's
 instance range to ``sub_chunk`` rows instead of ``chunk``
 (``config.layout_unit``), which shrinks the layout; the kernels read
@@ -30,12 +32,11 @@ import torch
 
 from .. import tracing
 from ..config import RasterizeConfig, check_raster, layout_unit
-from . import sh as sh_ops
 from .binning import bin_gaussians
+from .kernels import screen_space as screen_space_ops
 from .kernels.composite import SPLAT_WIDTH, Composite
-from .projection import PreprocessOut, ndc2pix, preprocess, tile_ellipse_mask
+from .projection import PreprocessOut, tile_ellipse_mask
 from .segsum import GatherSplatsT
-from .transforms import build_cov3d
 
 
 class RenderOut(NamedTuple):
@@ -144,21 +145,34 @@ def screen_space(means3d, scales, rotations, opacities, shs, *, viewmatrix, proj
                  colors_precomp: Optional[torch.Tensor] = None,
                  cov3d_precomp: Optional[torch.Tensor] = None,
                  cfg: RasterizeConfig = RasterizeConfig()) -> ScreenSpace:
-    """cov3D -> EWA preprocess -> SH colour: the per-gaussian half of the render."""
+    """cov3D -> EWA preprocess -> SH colour: the per-gaussian half of the render.
+
+    CUDA tensors take one kernel launch each way (``ScreenSpaceFn``, which
+    refuses a camera that wants a gradient); CPU tensors and precomputed
+    colours or covariances take the plain chain
+    (``screen_space_ops.forward_plain``).
+    """
     with tracing.span("gs.screen_space"):
-        cov3d = cov3d_precomp if cov3d_precomp is not None else build_cov3d(
-            scales, rotations, scale_modifier)
         op = opacities[:, 0] if opacities.dim() == 2 else opacities
-        pre = preprocess(means3d, cov3d, viewmatrix, projmatrix, width=width, height=height,
-                         tan_fovx=tan_fovx, tan_fovy=tan_fovy, tile_x=cfg.tile_x,
-                         tile_y=cfg.tile_y, alive=alive,
-                         opacities=op if cfg.opacity_aware_radius else None)
-        ndc = pre.means2d_ndc
+        kw = dict(width=width, height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
+                  sh_degree=sh_degree, scale_modifier=scale_modifier, tile_x=cfg.tile_x,
+                  tile_y=cfg.tile_y)
+        radius_op = op if cfg.opacity_aware_radius else None
+        camera = (viewmatrix, projmatrix, campos)
+        if (means3d.device.type == "cpu" or colors_precomp is not None
+                or cov3d_precomp is not None):
+            out = screen_space_ops.forward_plain(
+                means3d, scales, rotations, shs, *camera, opacities=radius_op, alive=alive,
+                tap=means2d_offset_ndc, cov3d_precomp=cov3d_precomp,
+                colors_precomp=colors_precomp, **kw)
+        else:
+            out = screen_space_ops.ScreenSpaceFn.apply(
+                means3d, scales, rotations, shs, means2d_offset_ndc, *camera,
+                None if radius_op is None else radius_op.detach(), alive, kw)
+        ndc, pix, depths, conics, colors, radii, rect, tiles, mask = out[:9]
+        pre = PreprocessOut(ndc, pix, depths, conics, radii, rect, tiles, mask)
         if means2d_offset_ndc is not None:
-            ndc = ndc + means2d_offset_ndc
-        pix = torch.stack([ndc2pix(ndc[:, 0], width), ndc2pix(ndc[:, 1], height)], dim=-1)
-        colors = colors_precomp if colors_precomp is not None else sh_ops.eval_sh_color(
-            sh_degree, shs, means3d, campos)
+            ndc, pix = out[9:11]
         return ScreenSpace(pre, pix, ndc, colors, op)
 
 

@@ -16,13 +16,15 @@ import re
 import pytest
 
 from gs_deformable_tpu_torch import _build
-from gs_deformable_tpu_torch.ops.kernels import composite, ordered_fill, tile_cull, trunk
+from gs_deformable_tpu_torch.ops.kernels import (composite, ordered_fill, screen_space,
+                                                 tile_cull, trunk)
 
 LIBRARIES = [("ordered_fill", ordered_fill._SIGNATURES),
              ("composite_fwd", composite._SIGNATURES),
              ("composite_bwd", composite._BWD_SIGNATURES),
              ("trunk", trunk._SIGNATURES),
-             ("tile_cull", tile_cull._SIGNATURES)]
+             ("tile_cull", tile_cull._SIGNATURES),
+             ("screen_space", screen_space._SIGNATURES)]
 
 C_KINDS = {"const void*": "pointer", "void*": "pointer", "int*": "pointer",
            "long long": "int64", "int": "int32", "unsigned": "uint32", "float": "float32"}

@@ -67,15 +67,17 @@ from gs_deformable_tpu_torch.models.deform import OffsetNet, init_offset_params
 from gs_deformable_tpu_torch import tracing
 from gs_deformable_tpu_torch.models.gaussians import GaussianState
 from gs_deformable_tpu_torch.ops import binning as tbin
-from gs_deformable_tpu_torch.ops import projection, transforms
+from gs_deformable_tpu_torch.ops import projection, rasterize, transforms
 from gs_deformable_tpu_torch.ops.kernels import composite as comp
 from gs_deformable_tpu_torch.ops.kernels import launch_counts, ordered_fill as of
+from gs_deformable_tpu_torch.ops.kernels import screen_space as ssk
 from gs_deformable_tpu_torch.ops.kernels import tile_cull as tc
 from gs_deformable_tpu_torch.ops.kernels import trunk as tk
 from gs_deformable_tpu_torch.ops.rasterize import prepare_tiles
 from gs_deformable_tpu_torch.renderer import CameraArrays, render
 
 import fill_cases
+import screen_cases
 import trunk_cases
 
 pytestmark = pytest.mark.cuda
@@ -463,7 +465,8 @@ def test_render_card_matches_cpu(cuda):
         launched = {k: after[k] - before[k] for k in after}
         want = {"composite_forward": 1, "composite_backward": 0, "ordered_prefix_fill": 2,
                 "ordered_place_i32": 1, "trunk_bias_relu": 0,  # the fp32 tier: no trunk
-                "trunk_relu_mask": 0, "tile_cull": 1}
+                "trunk_relu_mask": 0, "tile_cull": 1, "screen_space_forward": 1,
+                "screen_space_backward": 0}
         assert launched == (want if dev.type == "cuda" else dict.fromkeys(want, 0))
         outs.append(out)
     g, c = outs
@@ -979,3 +982,281 @@ def test_tile_cull_counts_rows_under_the_profiler(cuda):
     rows = int((tt > 0).sum()) + int((tt[:300] > 0).sum())
     masked = int(((mask >> 16) & 1).sum()) + int(((mask[:300] >> 16) & 1).sum())
     assert (c["cull.rows"], c["cull.masked_rows"]) == (rows, masked)
+
+
+# Screen space (ops/kernels/screen_space.py): the forward kernel against the
+# plain chain on the same CUDA tensors, the backward against autograd of it.
+SS_FLOATS = ("ndc", "pix", "depths", "conics", "colors", "ndc_tap", "pix_tap")
+SS_INTS = ("radii", "rect", "tiles_touched", "mask")
+SS_ULPS = 2
+
+
+def _ss_args(x, cam):
+    return (x["means3d"], x["scales"], x["rotations"], x["shs"], cam["viewmatrix"],
+            cam["projmatrix"], cam["campos"])
+
+
+def _ss_same(x, cam, kw, *, aware=True, alive=True, tap=None, what=""):
+    """One forward launch against ``forward_plain`` on the same CUDA tensors:
+    the integer outputs equal, the floats within SS_ULPS ulps.  Prints the
+    worst ulps and the rows whose integers differ."""
+    opt = dict(opacities=x["opacities"] if aware else None, alive=x["alive"] if alive else None,
+               tap=tap)
+    before = launch_counts()["screen_space_forward"]
+    got = dict(zip(ssk.OUTPUTS, ssk.screen_space_forward(*_ss_args(x, cam), **opt, **kw)))
+    assert launch_counts()["screen_space_forward"] == before + 1
+    ref = dict(zip(ssk.OUTPUTS, ssk.forward_plain(*_ss_args(x, cam), **opt, **kw)))
+    worst, differ = {}, 0
+    for k in SS_FLOATS:
+        assert (got[k] is None) == (ref[k] is None), k
+        if ref[k] is not None:
+            assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+            worst[k] = int(screen_cases.ulps(got[k], ref[k]).max()) if ref[k].numel() else 0
+    n = x["means3d"].shape[0]
+    for k in SS_INTS:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        if n:
+            differ += int((got[k] != ref[k]).reshape(n, -1).any(1).sum())
+    print(f"{what}: worst ulps {worst}; rows with an integer off {differ}")
+    assert all(v <= SS_ULPS for v in worst.values()), (what, worst)
+    for k in SS_INTS:
+        assert torch.equal(got[k], ref[k]), (what, k)
+    return got
+
+
+def _ss_scene(seed, n, alive, W, H, device, coeffs=16, edges=screen_cases.EDGE_KINDS):
+    cam, kw = screen_cases.camera(W, H, device)
+    x = screen_cases.inputs(seed, n, alive, device, coeffs=coeffs)
+    screen_cases.edge_rows(x, cam, seed, edges)
+    return x, cam, kw
+
+
+@pytest.mark.parametrize("W,H,n,alive", [(800, 800, 1 << 18, 100_000),
+                                         (1920, 1080, 1 << 20, 400_000)],
+                         ids=["800x800-262144", "1080p-1048576"])
+def test_screen_space_forward_at_main_path_shapes(cuda, W, H, n, alive):
+    """The benchmark's scene at its capacities: the render path (no tap) and
+    the train path (the zeros tap), opacity-aware radius on."""
+    x, cam, kw = _ss_scene(11, n, alive, W, H, cuda, edges=())
+    for tap in (None, torch.zeros((n, 2), device=cuda)):
+        got = _ss_same(x, cam, dict(kw, sh_degree=3), tap=tap, what=f"{W}x{H} {n}")
+        assert int(got["mask"].sum()) > 0.5 * alive
+        assert not bool(got["mask"][alive:].any())
+
+
+@pytest.mark.parametrize("n", [699_050, 699_051])
+def test_screen_space_forward_at_the_gemv_switch(cuda, n):
+    """Either side of 699,050 rows, where cuBLAS's gemv for the near test
+    sums in another order on an H100 while the kernel keeps one: the
+    integers equal the plain chain's and the depths stay within SS_ULPS."""
+    x, cam, kw = _ss_scene(13, n, 300_000, 800, 800, cuda, edges=())
+    _ss_same(x, cam, dict(kw, sh_degree=3), what=f"gemv switch, {n} rows")
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+def test_screen_space_forward_on_edge_rows(cuda, deg):
+    """Every active degree, a quarter of the rows dead, the opacity-aware
+    radius on and off, tap none and zeros, on the chain's edge rows."""
+    n = 4099
+    x, cam, kw = _ss_scene(deg, n, 3 * n // 4, 320, 176, cuda, coeffs=25 if deg == 4 else 16)
+    for aware in (True, False):
+        for tap in (None, torch.zeros((n, 2), device=cuda)):
+            got = _ss_same(x, cam, dict(kw, sh_degree=deg), aware=aware, tap=tap,
+                           what=f"deg {deg} aware {aware} tap {tap is not None}")
+    assert bool(got["mask"].any()) and not bool(got["mask"].all())
+    _ss_same(x, cam, dict(kw, sh_degree=deg, scale_modifier=0.7), alive=False,
+             what=f"deg {deg} scale_modifier 0.7, alive none")
+
+
+def test_screen_space_forward_small_and_strided(cuda):
+    n = 1000
+    x, cam, kw = _ss_scene(5, n, 800, 160, 96, cuda)
+    kw = dict(kw, sh_degree=3)
+    for p in (0, 1, 255, 257):  # P below, at and past one block
+        _ss_same({k: v[:p] for k, v in x.items()}, cam, kw, what=f"P = {p}")
+    wide = torch.cat([x["means3d"], x["scales"], x["rotations"], x["opacities"][:, None]], 1)
+    shs_t = x["shs"].transpose(1, 2).contiguous().transpose(1, 2)  # (n, 16, 3), coefficient stride 1
+    strided = dict(x, means3d=wide[:, 0:3], scales=wide[:, 3:6], rotations=wide[:, 6:10],
+                   opacities=wide[:, 10], shs=shs_t)
+    _ss_same(strided, cam, kw, tap=torch.zeros((n, 4), device=cuda)[:, 1:3], what="strided")
+    _ss_same(dict(x, opacities=x["opacities"][:, None]), cam, kw, what="(P, 1) opacities")
+
+
+def _ss_cotangents(n, alive, device, seed, names):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = dict(ndc=(n, 2), pix=(n, 2), depths=(n,), conics=(n, 3), colors=(n, 3),
+                  ndc_tap=(n, 2), pix_tap=(n, 2))
+    out = []
+    for k in ssk.GRAD_OUTPUTS:
+        if k not in names:
+            out.append(None)
+            continue
+        g = torch.randn(shapes[k], generator=gen, device=device)
+        g[alive:] = 0.0  # dead rows sit in no tile: the composite gives them nothing
+        out.append(g)
+    return tuple(out)
+
+
+def _grads_close(got, ref, what, bar=True):
+    """ROADMAP's train-step bar: rtol 1e-3, atol 5e-5 x the leaf's largest |g|;
+    non-finite exactly where autograd's is.  ``bar`` False: that alone.  Every
+    gradient is a tensor: zeros where autograd gives None."""
+    for name, g, r in zip(ssk.INPUTS, got, ref):
+        assert g is not None, (what, name)
+        if r is None:
+            assert not bool(g.any()), (what, name)
+            continue
+        finite = torch.isfinite(r)
+        assert torch.equal(torch.isfinite(g), finite), (what, name)
+        if not bar:
+            continue
+        g, r = g[finite], r[finite]
+        scale = float(r.abs().max()) if r.numel() else 0.0
+        err = (g - r).abs() - 1e-3 * r.abs()
+        print(f"{what} {name}: scale {scale:.3e}, worst excess {float(err.max()):.3e}")
+        assert float(err.max()) <= 5e-5 * scale, (what, name)
+
+
+# (the cotangents that arrive): the train step's, the mesh step's, all, and
+# no colour and no tap (the SH and tap gradients come back zero)
+SS_COTANGENTS = {"step": ("pix_tap", "conics", "colors"),
+                 "mesh": ("ndc_tap", "conics", "colors", "depths"),
+                 "all": ssk.GRAD_OUTPUTS,
+                 "geometry": ("pix", "conics")}
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("which", list(SS_COTANGENTS))
+def test_screen_space_backward_matches_autograd(cuda, deg, which):
+    """One backward launch against autograd of the plain chain, at the train
+    step's gradient bars on the well-posed edge rows, the tap's gradient
+    (what densification reads) included; dead rows get exactly zero.  With
+    the ill-posed rows too (``screen_cases.WELL_POSED_KINDS``), non-finite
+    exactly where autograd's gradients are."""
+    n, alive = 4099, 3000
+    coeffs = 25 if deg == 4 else 16
+    kw = dict(sh_degree=deg, scale_modifier=0.9 if which == "all" else 1.0)
+    cot = _ss_cotangents(n, alive, cuda, deg, SS_COTANGENTS[which])
+    for edges in (screen_cases.WELL_POSED_KINDS, screen_cases.EDGE_KINDS):
+        x, cam, skw = _ss_scene(20 + deg, n, alive, 320, 176, cuda, coeffs, edges)
+        if which == "all":  # SH rows not contiguous: the wrapper makes them so
+            x["shs"] = x["shs"].transpose(1, 2).contiguous().transpose(1, 2)
+        before = launch_counts()["screen_space_backward"]
+        got = ssk.screen_space_backward(*_ss_args(x, cam), cot, tap_given=True, **kw, **skw)
+        assert launch_counts()["screen_space_backward"] == before + 1
+        ref = ssk.backward_plain(*_ss_args(x, cam), cot, tap_given=True, **kw, **skw)
+        _grads_close(got, ref, f"deg {deg} {which}", bar=edges == screen_cases.WELL_POSED_KINDS)
+        for g in got:
+            if g is not None:
+                assert not bool(g[alive:].any())
+
+
+@pytest.mark.parametrize("W,H,n,alive", [(800, 800, 1 << 18, 100_000)], ids=["800x800-262144"])
+def test_screen_space_backward_at_main_path_shapes(cuda, W, H, n, alive):
+    x, cam, kw = _ss_scene(12, n, alive, W, H, cuda, edges=())
+    kw = dict(kw, sh_degree=3)
+    cot = _ss_cotangents(n, alive, cuda, 1, SS_COTANGENTS["step"])
+    got = ssk.screen_space_backward(*_ss_args(x, cam), cot, tap_given=True, **kw)
+    ref = ssk.backward_plain(*_ss_args(x, cam), cot, tap_given=True, **kw)
+    _grads_close(got, ref, f"{W}x{H} {n}")
+
+
+def test_screen_space_backward_past_48k_of_shared_memory(cuda):
+    """36 SH coefficients a row at degree 3: the block's SH rows take more
+    than 48 KiB of shared memory, and the coefficients past the degree's 16
+    get zero gradients."""
+    n, alive = 1000, 800
+    x, cam, kw = _ss_scene(30, n, alive, 320, 176, cuda, coeffs=36,
+                           edges=screen_cases.WELL_POSED_KINDS)
+    kw = dict(kw, sh_degree=3)
+    cot = _ss_cotangents(n, alive, cuda, 3, SS_COTANGENTS["step"])
+    got = ssk.screen_space_backward(*_ss_args(x, cam), cot, tap_given=True, **kw)
+    ref = ssk.backward_plain(*_ss_args(x, cam), cot, tap_given=True, **kw)
+    _grads_close(got, ref, "36 coefficients")
+    assert not bool(got[3][:, 16:].any())
+
+
+def test_screen_space_refuses_a_camera_that_wants_a_gradient(cuda):
+    """The kernels give the camera no gradient: ``screen_space`` on CUDA
+    tensors raises where the camera requires one, and takes no other route."""
+    n = 257
+    x, cam, kw = _ss_scene(31, n, 200, 160, 96, cuda, edges=())
+    for k in cam:
+        bad = dict(cam, **{k: cam[k].clone().requires_grad_(True)})
+        before = launch_counts()
+        with pytest.raises(ValueError, match="camera"):
+            rasterize.screen_space(x["means3d"], x["scales"], x["rotations"], x["opacities"],
+                                   x["shs"], sh_degree=3, alive=x["alive"], **bad, **kw)
+        assert launch_counts() == before, k
+
+
+def test_screen_space_replays_in_a_cuda_graph(cuda):
+    """Both kernels captured into CUDA graphs and replayed on new inputs of
+    the same length, an eager call after each replay: the forward bitwise the
+    plain chain, the backward bitwise the eager kernel.  A capture counts one
+    launch; replays count none."""
+    n, alive = 3001, 2500
+    sets = []
+    for s in range(4):
+        x, cam, kw = _ss_scene(40 + s, n, alive, 320, 176, cuda)
+        cot = _ss_cotangents(n, alive, cuda, s, SS_COTANGENTS["step"])
+        sets.append((*_ss_args(x, cam), x["opacities"], x["alive"], cot[3], cot[4], cot[6]))
+    kw = dict(kw, sh_degree=3)
+    tap = torch.zeros((n, 2), device=cuda)
+
+    def backward(m, s, q, sh, v, p, c, o, a, g_con, g_col, g_pix):
+        return ssk.screen_space_backward(m, s, q, sh, v, p, c,
+                                         (None, None, None, g_con, g_col, None, g_pix),
+                                         tap_given=True, **kw)
+
+    def both(*b):
+        m, s, q, sh, v, p, c, o, a = b[:9]
+        return (ssk.screen_space_forward(m, s, q, sh, v, p, c, opacities=o, alive=a, tap=tap,
+                                         **kw), backward(*b))
+
+    buffers = [tuple(t.clone() for t in sets[0])]
+    graphs = [_capture(lambda: both(*buffers[0]))]
+    before = launch_counts()
+
+    def check(out, inputs, what):
+        m, s, q, sh, v, p, c, o, a = inputs[:9]
+        ref = ssk.forward_plain(m, s, q, sh, v, p, c, opacities=o, alive=a, tap=tap, **kw)
+        for k, g, r in zip(ssk.OUTPUTS, out[0], ref):
+            assert (g is None and r is None) or (same_bits(g, r) if g.dtype == torch.float32
+                                                 else torch.equal(g, r)), (what, k)
+        for g, e in zip(out[1], backward(*inputs)):
+            assert (g is None and e is None) or same_bits(g, e), what
+
+    n_rep = _replay_in_turns(graphs, buffers, sets, both, check)
+    after = launch_counts()
+    # the eager call after each replay, and the eager backward of each check
+    assert after["screen_space_forward"] == before["screen_space_forward"] + n_rep
+    assert after["screen_space_backward"] == before["screen_space_backward"] + 3 * n_rep
+
+
+def test_screen_space_launches_once_each_way_a_step(cuda):
+    """A train-like render and its backward through ``render``: one launch of
+    each screen-space kernel, the tap's gradient from the backward kernel."""
+    x, cam, kw = _ss_scene(3, 4096, 3000, 160, 96, cuda, edges=())
+    state = GaussianState.from_numpy({
+        "xyz": x["means3d"].cpu().numpy(), "f_dc": x["shs"][:, :1].cpu().numpy(),
+        "f_rest": x["shs"][:, 1:].cpu().numpy(),
+        "opacity": torch.logit(x["opacities"].clamp(1e-4, 1 - 1e-4))[:, None].cpu().numpy(),
+        "scaling": torch.log(x["scales"]).cpu().numpy(),
+        "rotation": x["rotations"].cpu().numpy(), "alive": x["alive"].cpu().numpy()},
+        device=cuda)
+    cfg = config.Config(model=config.ModelConfig(deform_mode="none"),
+                        raster=config.RasterizeConfig(instance_capacity=1 << 16))
+    camera_arrays = CameraArrays(cam["viewmatrix"], cam["projmatrix"], cam["campos"],
+                                 torch.tensor(0.0, device=cuda))
+    tap = torch.zeros((4096, 2), device=cuda, requires_grad=True)
+    before = launch_counts()
+    out, _ = render(state, None, camera_arrays, iteration=0, bg=torch.zeros(3, device=cuda),
+                    width=kw["width"], height=kw["height"], tan_fovx=kw["tan_fovx"],
+                    tan_fovy=kw["tan_fovy"], active_sh_degree=3, cfg=cfg,
+                    means2d_offset_ndc=tap, device=cuda)
+    out.image.sum().backward()
+    after = launch_counts()
+    assert after["screen_space_forward"] - before["screen_space_forward"] == 1
+    assert after["screen_space_backward"] - before["screen_space_backward"] == 1
+    assert tap.grad is not None and float(tap.grad.abs().sum()) > 0
